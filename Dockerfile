@@ -1,5 +1,5 @@
-# spinglass-tpu serving image. The TPU runtime (libtpu) is expected from the
-# host/node (GKE TPU node pools inject it); CPU fallback works out of the box.
+# spinglass-tpu serving image on CUDA. The host provides the NVIDIA driver
+# (run with --gpus all); JAX's CUDA wheels bring the CUDA runtime libraries.
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends g++ \
@@ -8,9 +8,8 @@ RUN apt-get update && apt-get install -y --no-install-recommends g++ \
 WORKDIR /app
 COPY pyproject.toml README.md ./
 COPY spinglass_tpu ./spinglass_tpu
-RUN pip install --no-cache-dir "jax[tpu]" -f https://storage.googleapis.com/jax-releases/libtpu_releases.html || \
-    pip install --no-cache-dir jax
-RUN pip install --no-cache-dir flax optax numpy click && pip install --no-cache-dir -e .
+RUN pip install --no-cache-dir "jax[cuda12]" && \
+    pip install --no-cache-dir -e ".[cli]"
 
 ENV SGT_ENVIRONMENT=production SGT_LOG_JSON=1
 HEALTHCHECK --interval=60s --timeout=30s CMD sgt health || exit 1

@@ -1,7 +1,7 @@
 """Tour of the advanced tiers: cluster updates, sparse 10k-spin solves,
 auto algorithm selection, federated optimization, auto-scaling, monitoring.
 
-Run: python examples/advanced_features.py  (CPU or TPU; small sizes)
+Run: python examples/advanced_features.py  (CPU or GPU; small sizes)
 """
 
 import os as _os

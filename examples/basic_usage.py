@@ -16,12 +16,12 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", choices=["cpu", "tpu"], default=None)
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default=None)
     args = ap.parse_args()
-    if args.platform == "cpu":
+    if args.platform:
         import jax
 
-        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_platforms", args.platform)
 
     from spinglass_tpu import IsingProblem, SAConfig, anneal
     from spinglass_tpu.anneal import pt

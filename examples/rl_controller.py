@@ -15,12 +15,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--updates", type=int, default=30)
     ap.add_argument("--envs", type=int, default=32)
-    ap.add_argument("--platform", choices=["cpu", "tpu"], default=None)
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default=None)
     args = ap.parse_args()
-    if args.platform == "cpu":
+    if args.platform:
         import jax
 
-        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_platforms", args.platform)
 
     import numpy as np
 

@@ -14,12 +14,12 @@ import argparse
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cities", type=int, default=12)
-    ap.add_argument("--platform", choices=["cpu", "tpu"], default=None)
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default=None)
     args = ap.parse_args()
-    if args.platform == "cpu":
+    if args.platform:
         import jax
 
-        jax.config.update("jax_platforms", "cpu")
+        jax.config.update("jax_platforms", args.platform)
 
     from spinglass_tpu.anneal.sa import SAConfig
     from spinglass_tpu.anneal.schedules import ScheduleConfig

@@ -1,9 +1,9 @@
-"""spinglass_tpu — a TPU-native spin-glass annealing + RL framework.
+"""spinglass_tpu — a spin-glass annealing + RL framework in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of
 ``danieleschmidt/spin-glass-anneal-rl`` (see SURVEY.md): combinatorial
 problems compile to Ising/QUBO models, batched Monte-Carlo annealers (SA,
-parallel tempering) minimize them with MXU-resident sweeps, and a PPO/DQN
+parallel tempering) minimize them with matrix-product sweeps, and a PPO/DQN
 controller learns temperature schedules over the annealer-as-environment.
 
 Graceful degradation (reference spin_glass_rl/__init__.py:14-67): when JAX is
@@ -42,8 +42,8 @@ def get_available_features() -> dict:
     (spin_glass_rl/__init__.py:70-88)."""
     if not _HAS_JAX:
         return {
-            "backend": "none", "tpu": False, "n_devices": 0,
-            "pallas_kernels": False, "annealing": "minimal",
+            "backend": "none", "gpu": False, "n_devices": 0,
+            "dense_kernel": None, "annealing": "minimal",
             "parallel_tempering": False, "problems": False, "rl": False,
         }
     import jax
@@ -51,9 +51,10 @@ def get_available_features() -> dict:
     backend = jax.default_backend()
     return {
         "backend": backend,
-        "tpu": backend == "tpu",
+        "gpu": backend == "gpu",
         "n_devices": jax.device_count(),
-        "pallas_kernels": backend == "tpu",
+        # route of the dense sweep's in-block updates (anneal.engines)
+        "dense_kernel": "pallas_triton" if backend == "gpu" else "xla",
         "annealing": True,
         "parallel_tempering": True,
         "problems": True,

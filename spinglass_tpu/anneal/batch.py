@@ -2,9 +2,9 @@
 
 Rebuilds the reference's BatchProcessor/AdaptiveBatchProcessor
 (annealing/batch_processor.py:180-652), which thread-pooled GPUAnnealer calls
-over <=4 workers. TPU-native design: same-shape problems stack into a leading
+over <=4 workers. Here same-shape problems stack into a leading
 problem axis and anneal as ONE jitted vmapped run (problems x replicas
-batched together on the MXU); differently-sized problems bucket by padded
+batched together in one matrix product); differently-sized problems bucket by padded
 size so each bucket compiles once. Memory-aware batch sizing uses device HBM
 stats instead of the reference's CUDA heuristics (cuda_kernels.py:458-490),
 and per-batch checkpoints mirror batch_processor.py:521-531."""

@@ -33,7 +33,7 @@ class AnnealResult:
     sweeps_per_second: float = 0.0
     spin_flips_per_second: float = 0.0
     algorithm: str = "sa"
-    device: str = "tpu"
+    device: str = "gpu"
     seed: Optional[int] = None
     converged: bool = False
     convergence_sweep: Optional[int] = None

@@ -17,7 +17,8 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from spinglass_tpu.core import pytree
 
 
 class ScheduleType(Enum):
@@ -52,7 +53,7 @@ class ScheduleConfig:
     custom_fn: Optional[Callable[[jax.Array], jax.Array]] = None
 
 
-@struct.dataclass
+@pytree.dataclass
 class ScheduleState:
     """Carried schedule state; `temp` is the temperature for the *next* sweep."""
 

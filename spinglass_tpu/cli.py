@@ -15,16 +15,15 @@ import numpy as np
 @click.group()
 @click.version_option(version="0.1.0", prog_name="spinglass-tpu")
 @click.option("--platform", default=None,
-              type=click.Choice(["tpu", "cpu"]),
+              type=click.Choice(["gpu", "cpu"]),
               help="force the JAX platform (default: auto-detect)")
 def main(platform):
-    """spinglass-tpu: TPU-native spin-glass annealing + RL framework."""
+    """spinglass-tpu: spin-glass annealing + RL framework in JAX."""
     if platform:
         import jax
 
         try:
-            jax.config.update("jax_platforms",
-                              "cpu" if platform == "cpu" else None)
+            jax.config.update("jax_platforms", platform)
         except RuntimeError as e:
             raise click.ClickException(
                 f"cannot switch platform after JAX initialized: {e}")
@@ -336,9 +335,9 @@ def quality_gates(output, gates):
               type=click.Choice(["dense", "sparse", "pt10k", "ttt", "rl"]),
               help="which headline benchmark to run")
 def bench_cmd(bench_path):
-    """Run a headline benchmark and print its JSON line (the installed-
-    package entry to the same bodies repo-root bench.py measures; shapes
-    auto-shrink off-TPU)."""
+    """Run a headline benchmark on the GPU and print its JSON line (the
+    installed-package entry to the same bodies repo-root bench.py measures;
+    fails on any other device)."""
     from spinglass_tpu.benchmarks import headline
     from spinglass_tpu.utils.cache import enable_persistent_compile_cache
 

@@ -13,7 +13,7 @@ beats single-spin Metropolis near criticality.
 
 The dense BFS step's join-probability sum factors into two [R, N] x [N, N]
 matmuls (max(J_ij s_i s_j, 0) = |J|_ij/2 + s_i s_j J_ij/2 for unit spins),
-so per-step cost is O(R N) memory and MXU flops — no [R, N, N]
+so per-step cost is O(R N) memory and matrix-product flops — no [R, N, N]
 materialization; large sparse instances use the ELL variants below."""
 
 from __future__ import annotations
@@ -58,11 +58,13 @@ def wolff_update(problem: IsingProblem, spins: jax.Array, beta: jax.Array,
         # bond_sum[r, j] = sum_i frontier_i * max(J_ij s_i s_j, 0). Using
         # s_i s_j in {-1, +1}: max(J_ij s_i s_j, 0) = |J|_ij/2 + s_i s_j
         # J_ij/2, so the sum factors into two [R, N] x [N, N] matmuls —
-        # O(R N) memory and MXU work instead of a [R, N, N] elementwise
-        # materialization (VERDICT.md r2 weak #7).
+        # O(R N) memory and matrix-product work instead of a [R, N, N]
+        # elementwise materialization.
         fmask = frontier.astype(jnp.float32)                       # [R, Np]
         fs = fmask * spins
-        bond_sum = 0.5 * (fmask @ jabs) + 0.5 * spins * (fs @ j32)
+        hi = lax.Precision.HIGHEST   # full f32: TF32 would round J
+        bond_sum = (0.5 * jnp.matmul(fmask, jabs, precision=hi)
+                    + 0.5 * spins * jnp.matmul(fs, j32, precision=hi))
         p_join = 1.0 - jnp.exp(-2.0 * beta[:, None] * bond_sum)
         u = jax.random.uniform(ku, (r, n_pad))
         newly = (u < p_join) & ~cluster & active[None, :]
@@ -94,7 +96,7 @@ def wolff_sweep(problem: IsingProblem, spins: jax.Array, beta: jax.Array,
 def wolff_update_ell(ell, spins: jax.Array, beta: jax.Array,
                      key: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """Sparse Wolff: one cluster flip per replica over ELL neighbor lists
-    (reference spin_dynamics.py:259-323 sparse Wolff; VERDICT.md weak #6 —
+    (reference spin_dynamics.py:259-323 sparse Wolff —
     no [R, N, N] materialization, so cluster moves work at 10k+ spins).
 
     Frontier contraction per BFS step is a gather-reduce over each spin's
@@ -195,7 +197,7 @@ class SwendsenWang:
 
     The reference README advertises a ``SwendsenWang`` sampler that does not
     exist in its code (SURVEY.md preamble); this is the real thing, built
-    TPU-first: bond activation, connected components, and cluster flips are
+    for accelerators: bond activation, connected components, and cluster flips are
     all vectorized [R, N(,K)] array ops under jit — components via min-label
     propagation with pointer jumping (l = min(l, neighbor_min); l = l[l]),
     which converges in O(log N) rounds instead of a per-cluster BFS.

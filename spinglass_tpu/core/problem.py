@@ -1,9 +1,9 @@
-"""Ising problem container — the TPU-native analog of the reference's IsingModel.
+"""Ising problem container — the JAX analog of the reference's IsingModel.
 
 The reference (spin_glass_rl/core/ising_model.py:36-259) is a mutable torch-based
 container with per-element ``set_coupling`` calls and an in-place ``spins`` tensor.
 Here the problem is an immutable pytree: a dense, symmetric, zero-diagonal coupling
-matrix laid out for the MXU, external fields, and optional metadata. Spin *state*
+matrix laid out for matrix products, external fields, and optional metadata. Spin *state*
 lives outside the problem (see spinglass_tpu.anneal.state.AnnealState) so the whole
 thing jits/vmaps/shards cleanly.
 
@@ -12,9 +12,9 @@ Conventions (identical to the reference, ising_model.py:149-174):
     field_i(s)  = sum_j J_ij s_j + h_i
     dE(flip i)  = 2 * s_i * field_i(s)
 
-J is stored dense. On TPU, dense [N, N] bf16/f32 matmuls keep the MXU fed up to
-N ~ 30k (a 10k^2 bf16 J is 200 MB of HBM); a padded ELL sparse form is provided
-for larger/sparser instances (see spinglass_tpu.kernels.sparse).
+J is stored dense (a 10k^2 f32 J is 400 MB of device memory); a padded ELL
+sparse form is provided for larger/sparser instances (see
+spinglass_tpu.kernels.sparse).
 """
 
 from __future__ import annotations
@@ -26,9 +26,10 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
-# Pad spin counts to the TPU lane width so every array is tile-aligned.
+from spinglass_tpu.core import pytree
+
+# Pad spin counts to a multiple of 128 so every block and tile is aligned.
 LANE = 128
 
 
@@ -36,7 +37,7 @@ def round_up(x: int, m: int = LANE) -> int:
     return ((x + m - 1) // m) * m
 
 
-@struct.dataclass
+@pytree.dataclass
 class IsingProblem:
     """Immutable Ising/QUBO problem pytree.
 
@@ -54,7 +55,7 @@ class IsingProblem:
     j: jax.Array
     h: jax.Array
     active_mask: jax.Array
-    n_spins: int = struct.field(pytree_node=False)
+    n_spins: int = pytree.static_field()
 
     @property
     def n_padded(self) -> int:

@@ -8,9 +8,9 @@ networkx dependency; the reference's small-world generator is also broken —
 
 Also provides greedy graph coloring: a sweep may flip all spins of one color
 simultaneously *exactly* (no same-color couplings → independent Metropolis
-proposals), which is the TPU-correct replacement for the reference CUDA kernel's
+proposals), which is the exact replacement for the reference CUDA kernel's
 all-sites-at-once update race (annealing/cuda_kernels.py:24-48; SURVEY §5
-"race detection" and ADR-0001).
+"race detection").
 """
 
 from __future__ import annotations

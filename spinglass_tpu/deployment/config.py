@@ -1,6 +1,6 @@
 """Production configuration: env-layered dataclasses.
 
-Rebuilds deployment/production_config.py:32-447 for the TPU stack: every
+Rebuilds deployment/production_config.py:32-447 for this stack: every
 field has an env-var override SGT_<SECTION>_<FIELD>, and environment presets
 (development / staging / production) adjust logging + safety defaults."""
 
@@ -38,7 +38,7 @@ def _env_override(prefix: str, cfg):
 
 @dataclass
 class ComputeConfig:
-    platform: str = "tpu"             # tpu | cpu
+    platform: str = "gpu"             # gpu | cpu
     n_replicas: int = 256
     block_size: int = 128
     use_pallas: str = "auto"

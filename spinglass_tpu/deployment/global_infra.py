@@ -2,9 +2,10 @@
 
 Rebuilds the reference's global-first tier (deployment/global_infrastructure
 .py:79-937 — I18nManager, ComplianceManager, CrossPlatformManager,
-GlobalInfrastructureManager) for the TPU service: message catalogs for user-
-facing strings, data-handling policies per regulation, and a region registry
-that maps deployment regions to TPU availability + data-residency rules.
+GlobalInfrastructureManager) for the solver service: message catalogs for
+user-facing strings, data-handling policies per regulation, and a region
+registry that maps deployment regions to GPU availability + data-residency
+rules.
 """
 
 from __future__ import annotations
@@ -150,16 +151,16 @@ class ComplianceManager:
 @dataclass(frozen=True)
 class Region:
     name: str                     # e.g. us-central1
-    tpu_types: tuple              # available accelerators
+    accelerators: tuple           # available GPU models
     jurisdiction: str             # GDPR | CCPA | PDPA
     dns_suffix: str = ""
 
 
 DEFAULT_REGIONS = (
-    Region("us-central1", ("v5e", "v5p"), "CCPA"),
-    Region("us-east5", ("v5p",), "CCPA"),
-    Region("europe-west4", ("v5e",), "GDPR"),
-    Region("asia-northeast1", ("v5e",), "PDPA"),
+    Region("us-central1", ("h100", "h200"), "CCPA"),
+    Region("us-east5", ("h200",), "CCPA"),
+    Region("europe-west4", ("h100",), "GDPR"),
+    Region("asia-northeast1", ("h100",), "PDPA"),
 )
 
 
@@ -176,7 +177,7 @@ class GlobalInfrastructureManager:
         self.i18n = I18nManager(locale)
         self.compliance = ComplianceManager(self.home.jurisdiction)
 
-    def eligible_regions(self, tpu_type: str = "v5e",
+    def eligible_regions(self, accelerator: str = "h100",
                          data_origin: Optional[str] = None) -> List[Region]:
         """Regions with the accelerator, filtered by the ORIGIN region's
         cross-border policy."""
@@ -184,19 +185,19 @@ class GlobalInfrastructureManager:
         origin_policy = POLICIES[origin.jurisdiction]
         out = []
         for r in self.regions.values():
-            if tpu_type not in r.tpu_types:
+            if accelerator not in r.accelerators:
                 continue
             if r.name != origin.name and not origin_policy.allows_cross_border:
                 continue
             out.append(r)
         return out
 
-    def place(self, tpu_type: str = "v5e",
+    def place(self, accelerator: str = "h100",
               data_origin: Optional[str] = None) -> Region:
-        elig = self.eligible_regions(tpu_type, data_origin)
+        elig = self.eligible_regions(accelerator, data_origin)
         if not elig:
-            raise RuntimeError(
-                f"no eligible region for tpu={tpu_type} origin={data_origin}")
+            raise RuntimeError(f"no eligible region for accelerator="
+                               f"{accelerator} origin={data_origin}")
         # prefer the origin region itself, else the first eligible
         origin_name = data_origin or self.home.name
         for r in elig:

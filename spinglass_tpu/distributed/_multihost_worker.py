@@ -3,9 +3,9 @@
 Each process brings up jax.distributed over localhost, builds the host-major
 replica mesh spanning BOTH processes' virtual CPU devices, and runs sharded
 parallel tempering across the process boundary — the real
-jax.distributed.initialize + GSPMD path that a multi-host TPU pod uses
-(SURVEY §2.6 TPU-native equivalent; the reference's communication_backend
-was never wired, multi_gpu.py:27).
+jax.distributed.initialize + GSPMD path that several GPU hosts use
+(SURVEY §2.6; the reference's communication_backend was never wired,
+multi_gpu.py:27).
 
 Usage: python -m spinglass_tpu.distributed._multihost_worker \
            <process_id> <num_processes> <port> <out_dir> [n_spins]

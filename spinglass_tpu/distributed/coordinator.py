@@ -3,7 +3,7 @@
 The reference's distributed/ package (DistributedCoordinator coordinator.py:79,
 ClusterManager cluster_manager.py:171, LoadBalancer load_balancer.py:63) is an
 in-process task-queue simulation that never serves the solve path (SURVEY
-§2.6). On TPU the multi-host JAX runtime replaces all of it for *solving*;
+§2.6). The multi-host JAX runtime replaces all of it for *solving*;
 what remains genuinely useful is a thin host-side runner that schedules many
 independent jobs (benchmark grids, seed sweeps, hyperparameter scans) with
 retries, heartbeat-style progress, and result collection — so that is what

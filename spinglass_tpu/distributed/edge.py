@@ -79,17 +79,14 @@ class EdgeOrchestrator:
             problem.n_spins, self.n_sweeps))
 
     def _run_on(self, node: EdgeNode, problem: IsingProblem):
-        import jax
-
         from spinglass_tpu.anneal.sa import SAConfig, anneal
 
-        use_pallas = "never" if jax.default_backend() != "tpu" else "auto"
         if node.backend == "pt":
             from spinglass_tpu.anneal import pt as pt_mod
 
             return pt_mod.run(problem, pt_mod.PTConfig(
                 n_replicas=self.n_replicas, n_sweeps=self.n_sweeps,
-                use_pallas=use_pallas, seed=self.seed))
+                seed=self.seed))
         if node.backend == "sqa":
             from spinglass_tpu.research.quantum import (
                 SQAConfig, simulated_quantum_annealing)
@@ -99,7 +96,7 @@ class EdgeOrchestrator:
                 n_replicas=self.n_replicas, seed=self.seed))
         return anneal(problem, SAConfig(
             n_sweeps=self.n_sweeps, n_replicas=self.n_replicas,
-            use_pallas=use_pallas, seed=self.seed))
+            seed=self.seed))
 
     def submit(self, problem: IsingProblem,
                prefer_backend: Optional[str] = None) -> EdgeJobResult:

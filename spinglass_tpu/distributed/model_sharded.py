@@ -2,11 +2,11 @@
 
 The reference's 'model_parallel' strategy (multi_gpu.py:169-232) sliced spins
 into contiguous blocks and **dropped all cross-block couplings** (physically
-incorrect; SURVEY §2.6). These are the exact TPU formulations, for instances
-whose J exceeds one device's HBM:
+incorrect; SURVEY §2.6). These are the exact formulations, for instances
+whose J exceeds one device's memory:
 
 * blocked_sweep_sharded — J **row-sharded**; each device computes its partial
-  contribution to a block's local fields, a psum over ICI completes them, and
+  contribution to a block's local fields, a psum completes them, and
   the cheap sequential intra-block update runs replicated (identical RNG →
   identical spins on every device). Exact sequential-equivalent Metropolis;
   per-sweep communication is n_blocks x [R, B] psums — independent of J size.
@@ -31,7 +31,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from spinglass_tpu.core.problem import IsingProblem
-from spinglass_tpu.kernels.sweeps import accept_prob
+from spinglass_tpu.kernels.sweeps import FIELD_PRECISION, accept_prob
 
 
 def make_mesh(devices=None, axis: str = "spin") -> Mesh:
@@ -91,7 +91,7 @@ def blocked_sweep_sharded(problem: IsingProblem, mesh: Mesh,
             s_local = lax.dynamic_slice(spins, (0, row0), (r, rows_per))
             j_cols = lax.dynamic_slice(j_rows, (0, i0),
                                        (rows_per, block_size))
-            h_part = jnp.matmul(s_local, j_cols,
+            h_part = jnp.matmul(s_local, j_cols, precision=FIELD_PRECISION,
                                 preferred_element_type=jnp.float32)
             hblk = lax.psum(h_part, axis)
             hblk = hblk + lax.dynamic_slice(h_full, (i0,),
@@ -167,7 +167,7 @@ def colored_sweep_sharded(problem: IsingProblem, mesh: Mesh,
         def body(carry, mask):
             s_local, de_acc, cnt = carry
             s_full = lax.all_gather(s_local, axis, axis=1, tiled=True)
-            f = jnp.matmul(s_full, j_cols,
+            f = jnp.matmul(s_full, j_cols, precision=FIELD_PRECISION,
                            preferred_element_type=jnp.float32) + h_local
             de = 2.0 * s_local * f
             p = accept_prob(de, beta[:, None], rule)

@@ -1,15 +1,15 @@
-"""Multi-host runtime setup: jax.distributed init + ICI/DCN-aware meshes.
+"""Multi-host runtime setup: jax.distributed init + host-major meshes.
 
 The reference declared nccl/gloo/mpi backends it never used
-(multi_gpu.py:27,40-43; SURVEY §2.6); the TPU-native equivalent is the JAX
+(multi_gpu.py:27,40-43; SURVEY §2.6); the equivalent here is the JAX
 multi-host runtime. This module is the thin layer around it:
 
   initialize(...)      — jax.distributed.initialize with env autodetection
                          (no-op on single host / inside a colocated runtime).
   replica_mesh(...)    — 1-D "replica" mesh over all global devices, ordered
                          host-major so each host's replica shard is local and
-                         exchange collectives ride ICI within a slice, DCN
-                         only across slices.
+                         exchange collectives stay on a host's NVLink, using
+                         the network only across hosts.
   hybrid_mesh(...)     — 2-D ("host", "replica") mesh for workloads that
                          shard problems across hosts and replicas within one.
   local_replica_slice  — this process's slice of a replica-sharded batch (for
@@ -34,7 +34,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> dict:
     """Bring up the multi-host runtime. Safe to call on a single host (no-op
     unless coordinator info is provided or discoverable from the standard
-    env vars / TPU metadata). Returns a summary dict."""
+    env vars). Returns a summary dict."""
     import jax
 
     explicit = coordinator_address or os.environ.get(
@@ -75,7 +75,7 @@ def replica_mesh(devices: Optional[Sequence] = None, axis: str = "replica"):
 def hybrid_mesh(devices: Optional[Sequence] = None,
                 axes: tuple = ("host", "replica")):
     """2-D (n_hosts, devices_per_host) mesh: shard independent problems over
-    hosts (DCN axis) and replicas within a host (ICI axis)."""
+    hosts (network axis) and replicas within a host (NVLink axis)."""
     import jax
     from jax.sharding import Mesh
 
@@ -115,7 +115,7 @@ def scaling_report(flips_per_sec_per_host: Sequence[float],
     # `is not None`, not truthiness: an explicit 0.0 baseline means the
     # single-host measurement FAILED and must surface as efficiency 0,
     # not silently fall back to load-balance-only mode (the falsy-zero
-    # class ADVICE r3 #4 flagged in quality_gates)
+    # class once found in quality_gates)
     explicit = baseline_rate is not None
     base = float(baseline_rate) if explicit else float(rates[0])
     ideal = base * len(rates)

@@ -6,7 +6,7 @@ WorkStealingQueue/WorkerPool (optimization/high_performance_scaling.py:99-
 own per-worker deques of problem jobs, idle workers steal from the tail of
 the busiest peer, and results stream back through a thread-safe collector.
 
-On TPU this layer is for HOST work (encode, decode, IO, per-problem driver
+On an accelerator this layer is for HOST work (encode, decode, IO, per-problem driver
 calls); device throughput comes from batching replicas inside one dispatch
 (anneal/batch.py), not from threads. The pool is still genuinely useful for
 heterogeneous problem sets whose encode/decode dominates, and for CPU-backend

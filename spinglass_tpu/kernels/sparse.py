@@ -7,7 +7,7 @@ self-loops of value 0; local fields become a gather + K-reduction
 
     f[r, i] = sum_k val[i, k] * s[r, idx[i, k]] + h[i]
 
-which XLA lowers to vectorized dynamic-gathers on TPU. Sweeps are colored
+which XLA lowers to vectorized dynamic gathers. Sweeps are colored
 (greedy coloring of a sparse graph needs <= max_degree + 1 colors), giving
 exact Metropolis with C sparse-field passes per sweep — O(C * R * N * K)
 work instead of the dense O(C * R * N^2)."""
@@ -20,16 +20,16 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import lax
 
+from spinglass_tpu.core import pytree
 from spinglass_tpu.core import topology
 from spinglass_tpu.core.problem import IsingProblem, round_up
 from spinglass_tpu.kernels.sweeps import (accept_threshold,
                                           color_masks_from_colors)
 
 
-@struct.dataclass
+@pytree.dataclass
 class EllProblem:
     """ELL-format sparse Ising problem pytree.
 
@@ -40,7 +40,7 @@ class EllProblem:
     val: jax.Array
     h: jax.Array
     active_mask: jax.Array
-    n_spins: int = struct.field(pytree_node=False)
+    n_spins: int = pytree.static_field()
 
     @property
     def n_padded(self) -> int:
@@ -120,11 +120,28 @@ def ell_from_terms(n_spins: int, terms, max_degree: Optional[int] = None
                                max_degree=max_degree)
 
 
+def neighbor_sum(gathered: jax.Array, val: jax.Array, axis: int) -> jax.Array:
+    """sum_k val * gathered over the neighbor axis, in f32.
+
+    A multiply and a reduction, not a dot: the products are exact (spins are
+    +-1) and the sum is plain f32, as under ``Precision.HIGHEST``, but XLA
+    fuses it with the gather instead of emitting one small batched GEMM per
+    degree bucket, each of which the GPU compiler autotunes separately.
+    ``val`` broadcasts against ``gathered`` with the spin axis inserted."""
+    return jnp.sum(gathered.astype(jnp.float32) * val.astype(jnp.float32),
+                   axis=axis)
+
+
+def rows_field(s_t: jax.Array, idx: jax.Array, val: jax.Array) -> jax.Array:
+    """[NS, R] spins, [m, k] neighbor rows and couplings -> [m, R] f32
+    fields sum_k val[:, k] * s_t[idx[:, k]]."""
+    return neighbor_sum(s_t[idx], val[:, :, None], axis=1)
+
+
 def sparse_local_fields(ell: EllProblem, spins: jax.Array) -> jax.Array:
     """[R, Np] -> [R, Np]: gather neighbors, multiply, reduce K."""
     gathered = spins[:, ell.idx]                   # [R, Np, K]
-    f = jnp.einsum("rnk,nk->rn", gathered,
-                   ell.val.astype(jnp.float32))
+    f = neighbor_sum(gathered, ell.val[None], axis=-1)
     return f + ell.h.astype(jnp.float32)[None, :]
 
 
@@ -171,7 +188,7 @@ def sparse_colored_sweep(
 # Compacted colored sweep — per-color gather of ONLY that color's spins
 # ---------------------------------------------------------------------------
 
-@struct.dataclass
+@pytree.dataclass
 class ColorGroups:
     """Per-color compacted operands, padded to the largest class size M.
 
@@ -232,7 +249,7 @@ def sparse_colored_sweep_compact(
         spins, de_acc, cnt = carry
         nodes, nmask, idx_c, val_c, h_c = g
         gathered = spins[:, idx_c]                       # [R, M, K]
-        f = jnp.einsum("rmk,mk->rm", gathered, val_c) + h_c[None, :]
+        f = neighbor_sum(gathered, val_c[None], axis=-1) + h_c[None, :]
         s_c = spins[:, nodes]                            # [R, M]
         sf = s_c.astype(jnp.float32) * f
         acc = (sf < th[:, nodes]) & (nmask > 0)[None, :]
@@ -362,10 +379,8 @@ def make_sorted_sweep(color_groups, n_padded: int, rule: str = "metropolis"):
     uniforms[:, p]. Per color: the degree buckets are subsets of the same
     independent set, so their neighbor gathers all read the SAME spin state
     (no false inter-bucket dependency — XLA overlaps them) and the color's
-    flips apply as ONE contiguous slice update. Measured 1.5x over the
-    bucket-chained form at narrow replica counts on v5e (the dependent-
-    gather latency chain shrinks from n_buckets*n_colors to n_colors steps);
-    decision-identical to the bucket-chained and compact sweeps under the
+    flips apply as ONE contiguous slice update (the dependent-gather chain
+    is n_colors steps long, not n_buckets*n_colors); decision-identical to the bucket-chained and compact sweeps under the
     same uniforms."""
 
     def sweep(spins, beta, uniforms):
@@ -380,7 +395,7 @@ def make_sorted_sweep(color_groups, n_padded: int, rule: str = "metropolis"):
             fs = []
             for b in bs:  # independent: all read the same `spins`
                 gathered = spins[:, b.idx]                  # [R, m, k]
-                fs.append(jnp.einsum("rmk,mk->rm", gathered, b.val)
+                fs.append(neighbor_sum(gathered, b.val[None], axis=-1)
                           + b.h[None, :])
             f = jnp.concatenate(fs, axis=1) if len(fs) > 1 else fs[0]
             s_c = lax.slice_in_dim(spins, off, off + mc, axis=1)
@@ -402,7 +417,7 @@ def make_sorted_sweep(color_groups, n_padded: int, rule: str = "metropolis"):
 class TBucket:
     """One degree bucket of one color class in the TRANSPOSED ([NS, R])
     sorted layout. Rows [off, off+m) of the sorted layout; neighbor lists
-    padded to this bucket's max degree k; m padded to the sublane multiple
+    padded to this bucket's max degree k; m padded to ``row_align`` rows
     (inert rows: val=0, h=0, masked in the acceptance thresholds)."""
 
     def __init__(self, off: int, idx: np.ndarray, val: np.ndarray,
@@ -420,24 +435,19 @@ def build_sorted_t(ell: EllProblem, colors: np.ndarray, n_buckets: int = 12,
                    total_align: int = 256, bucket_order: str = "degree"):
     """Host-side layout for the transposed sorted sliced-ELL sweep.
 
-    Differences vs build_sorted_buckets (both measured on v5e, 10k spins /
-    avg degree 6 / R=1024):
+    Differences vs build_sorted_buckets:
     * every bucket size is padded to ``row_align`` rows and every color span
-      to ``color_align`` rows, so all sweep slices/updates are tile-aligned
-      (unaligned sublane offsets forced XLA relayouts worth ~30% of the
-      sweep);
-    * more degree buckets (12 vs 4) cut padded gather rows 77k → 65k on the
-      benchmark graph — the row-gather is issue-bound (~7 ns/row), so fewer
-      padded rows is time saved regardless of byte width;
-    * returns a [NS, 1] threshold mask (0 real / -inf padding) consumed by
-      the threshold generator so inert rows never flip.
+      to ``color_align`` rows, so all sweep slices/updates are aligned;
+    * more degree buckets (12 vs 4) cut padded gather rows 77k -> 65k on the
+      10k-spin avg-degree-6 graph;
+    * returns a [NS, 1] threshold mask (0 real / -inf padding) so inert rows
+      never flip.
 
     ``bucket_order``: row order INSIDE each degree bucket — "degree"
     (descending, the historical default) or "index" (ascending original
-    index — the r5 1M-spin locality experiment, VERDICT r4 task 5: does
-    keeping original-index order inside buckets recover DRAM locality
-    that degree-sorting scatters? Bucket membership and padding are
-    identical either way; only the within-bucket row order changes).
+    index, which keeps the memory locality that degree sorting scatters).
+    Bucket membership and padding are identical either way; only the
+    within-bucket row order changes.
 
     Returns (perm [NS] original index per sorted row (-1 padding),
     inv_map [n_padded] sorted position per original row, groups
@@ -520,430 +530,13 @@ def build_sorted_t(ell: EllProblem, colors: np.ndarray, n_buckets: int = 12,
     return perm, inv_map, groups, jnp.asarray(mask[:, None]), n_sorted
 
 
-def make_threshold_call(n_sorted: int, r: int, rule: str,
-                        block_rows: int = 256, interpret: bool = False):
-    """Pallas TPU kernel producing acceptance thresholds th [NS, R] directly
-    from the on-chip PRNG (replaces host threefry + accept_threshold, which
-    cost ~400 us/sweep at [10240, 1024] — ~27%% of the whole sweep).
-
-    Same exp-free semantics as kernels.sweeps.accept_threshold: accept a
-    flip iff s_i * f_i < th_i. nib = -0.5/beta arrives as [1, R] (per-replica
-    ladders supported); mask_col [NS, 1] is 0 on real rows / -inf on layout
-    padding, forcing never-accept there."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_blocks = n_sorted // block_rows
-    assert n_sorted % block_rows == 0
-
-    def kernel(seed_ref, nib_ref, mask_ref, out_ref):
-        b = pl.program_id(0)
-        # seed with BOTH key words, folding the block id into word 1 with a
-        # golden-ratio odd multiplier: collapsing the key to one int32 (r3)
-        # left ~2^32/n_blocks distinct per-block streams, so 200k-sweep
-        # runs could reuse bit-identical threshold blocks across sweeps
-        # (ADVICE.md r3 #1). Mosaic accepts at most 2 seed values
-        # ("Setting seed with more than 2 values is not supported",
-        # verified on v5e), hence the fold instead of a third seed.
-        pltpu.prng_seed(seed_ref[0],
-                        seed_ref[1] ^ (b * jnp.int32(-1640531527)))
-        bits = pltpu.bitcast(pltpu.prng_random_bits(out_ref.shape), jnp.int32)
-        u = bits.astype(jnp.float32) * (1.0 / 4294967296.0) + 0.5
-        if rule == "metropolis":
-            th = jnp.log(u) * nib_ref[:]
-        else:  # glauber: -logit(u)/(2 beta)
-            th = (jnp.log(u) - jnp.log1p(-u)) * nib_ref[:]
-        # int32->f32 rounding can land u EXACTLY on 1.0 (bits near 2^31-1),
-        # making th 0 (accept-any-downhill); guard to never-accept for
-        # consistency with the dense kernel's u < 1.0 guard (ADVICE.md r4 #1)
-        th = jnp.where(u < 1.0, th, -jnp.inf)
-        out_ref[:] = jnp.where(mask_ref[:] < 0, -jnp.inf, th)
-
-    def call(seed, nib, mask_col):
-        return pl.pallas_call(
-            kernel,
-            grid=(n_blocks,),
-            out_shape=jax.ShapeDtypeStruct((n_sorted, r), jnp.float32),
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec((1, r), lambda b: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((block_rows, 1), lambda b: (b, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((block_rows, r), lambda b: (b, 0),
-                                   memory_space=pltpu.VMEM),
-            interpret=interpret,
-        )(seed, nib, mask_col)
-
-    return call
-
-
-def make_accept_call(mc: int, r: int, rule: str, off: int, spin_dtype,
-                     interpret: bool = False):
-    """Fused per-color accept kernel (round-4 experiment, NOT the default
-    — see SortedSparseTEngine.__init__): generates acceptance thresholds
-    from the on-chip PRNG, compares s*f < th, flips, and accumulates
-    dE/counts — all in one VMEM pass over the color slice, replacing the
-    separate [NS, R] threshold kernel + XLA elementwise passes (threshold
-    write+readback is ~80 MB of HBM traffic per sweep at [10240, 1024]).
-    Measured on v5e: the per-sweep n_colors pallas_call overheads cost
-    more than that traffic saves (1021-1027 vs 947-951 us/sweep).
-
-    Mosaic note: selects on int8 values crash the TPU compiler
-    (tpu_compile_helper exit 1, found r3); spins are widened to f32 on
-    load, all math/selects run in f32, and the result is narrowed back to
-    ``spin_dtype`` only at the store.
-
-    Seeding: (key word 0, key word 1 ^ hash(global row)) — the block's
-    GLOBAL starting row (off + b*block_rows) is unique across all
-    colors/blocks of a sweep; the key words are split per sweep upstream.
-    (Folded because Mosaic accepts at most 2 seed values.)"""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    block_rows = next(b for b in (256, 128, 64, 32)
-                      if mc % b == 0 and off % b == 0)
-    n_blocks = mc // block_rows
-
-    def kernel(seed_ref, nib_ref, f_ref, s_ref, mask_ref,
-               s_out, de_out, cnt_out):
-        b = pl.program_id(0)
-        # global starting row of this block, folded into seed word 1
-        # (Mosaic caps prng_seed at 2 values; golden-ratio odd multiplier
-        # spreads the small row ids across the word)
-        row = jnp.int32(off) + b * jnp.int32(block_rows)
-        pltpu.prng_seed(seed_ref[0],
-                        seed_ref[1] ^ (row * jnp.int32(-1640531527)))
-        bits = pltpu.bitcast(pltpu.prng_random_bits((block_rows, r)),
-                             jnp.int32)
-        u = bits.astype(jnp.float32) * (1.0 / 4294967296.0) + 0.5
-        if rule == "metropolis":
-            th = jnp.log(u) * nib_ref[:]
-        else:  # glauber: -logit(u)/(2 beta)
-            th = (jnp.log(u) - jnp.log1p(-u)) * nib_ref[:]
-        # u == 1.0 guard, same as make_threshold_call (ADVICE.md r4 #1)
-        th = jnp.where(u < 1.0, th, -jnp.inf)
-        th = jnp.where(mask_ref[:] < 0, -jnp.inf, th)
-        s32 = s_ref[:].astype(jnp.float32)
-        sf = s32 * f_ref[:]
-        acc = sf < th
-        s_out[:] = jnp.where(acc, -s32, s32).astype(s_out.dtype)
-        de_b = 2.0 * jnp.sum(jnp.where(acc, sf, 0.0), axis=0,
-                             keepdims=True)
-        cnt_b = jnp.sum(acc.astype(jnp.int32), axis=0, keepdims=True)
-
-        @pl.when(b == 0)
-        def _init():
-            de_out[:] = de_b
-            cnt_out[:] = cnt_b
-
-        @pl.when(b != 0)
-        def _acc():
-            de_out[:] = de_out[:] + de_b
-            cnt_out[:] = cnt_out[:] + cnt_b
-
-    def call(seed, nib, f, s_c, mask_c):
-        return pl.pallas_call(
-            kernel,
-            grid=(n_blocks,),
-            out_shape=[
-                jax.ShapeDtypeStruct((mc, r), jnp.dtype(spin_dtype)),
-                jax.ShapeDtypeStruct((1, r), jnp.float32),
-                jax.ShapeDtypeStruct((1, r), jnp.int32),
-            ],
-            in_specs=[
-                pl.BlockSpec(memory_space=pltpu.SMEM),
-                pl.BlockSpec((1, r), lambda b: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((block_rows, r), lambda b: (b, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((block_rows, r), lambda b: (b, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((block_rows, 1), lambda b: (b, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((block_rows, r), lambda b: (b, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, r), lambda b: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, r), lambda b: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            interpret=interpret,
-        )(seed, nib, f, s_c, mask_c)
-
-    return call
-
-
-def make_sorted_t_sweep_fused(groups, mask_col, rule, spin_dtype,
-                              interpret: bool = False):
-    """Transposed sorted sweep with the fused Pallas accept kernel: XLA
-    does the neighbor gathers + einsum local fields per color (MXU/issue
-    bound — XLA already does this well), the Pallas kernel does
-    RNG+threshold+compare+flip+reduce in one pass (the part XLA spread
-    over an [NS, R] threshold round trip and several elementwise passes).
-    Signature: sweep(s_t, nib [1,R], seed [2] int32) — no threshold input."""
-    calls = {}
-
-    def sweep(s_t, nib, seed):
-        r = s_t.shape[1]
-        de_acc = jnp.zeros((r,), jnp.float32)
-        cnt = jnp.zeros((r,), jnp.int32)
-        for off, mc, bs in groups:
-            fs = []
-            for b in bs:  # independent: all read the same `s_t`
-                g = s_t[b.idx]                      # [m, k, R]
-                fs.append(jnp.einsum("mkr,mk->mr", g.astype(jnp.float32),
-                                     b.val) + b.h[:, None])
-            f = jnp.concatenate(fs, axis=0) if len(fs) > 1 else fs[0]
-            if (off, mc, r) not in calls:
-                calls[(off, mc, r)] = make_accept_call(
-                    mc, r, rule, off, s_t.dtype, interpret=interpret)
-            s_c = lax.slice_in_dim(s_t, off, off + mc, axis=0)
-            mask_c = lax.slice_in_dim(mask_col, off, off + mc, axis=0)
-            s_new, de_c, cnt_c = calls[(off, mc, r)](seed, nib, f, s_c,
-                                                     mask_c)
-            s_t = lax.dynamic_update_slice(s_t, s_new, (off, 0))
-            de_acc = de_acc + de_c[0]
-            cnt = cnt + cnt_c[0]
-        return s_t, de_acc, cnt
-
-    return sweep
-
-
-KS_BLOCK = 256  # per-step max-degree table streams to SMEM in this many
-# rows per window (a whole-table SMEM operand failed Mosaic allocation
-# above ~1900 rows / ~7.7 KB — r5 probe at n_sorted >= 61440)
-
-
-def build_single_tables(groups, n_sorted: int, rps: int = 32):
-    """Flatten build_sorted_t's per-color bucket lists into whole-layout
-    row tables for the single-call sweep kernel (make_single_sweep_call):
-
-      idx_all [NS, KMAX] int32 — neighbor SORTED rows, nonzeros first
-      val_all [NS, KMAX] f32   — couplings (0 padding)
-      ks      [NS/rps, 1] int32 — per-STEP edge-slot bound: max true
-                                 neighbor count over the step's rows (the
-                                 kernel statically unrolls KMAX edge slots
-                                 and skips slot e when e >= ks — a dynamic
-                                 per-row loop measured 20.3 vs 2.4 ns/edge)
-      h_all   [NS, 1]   f32    — external fields (0 on inert rows)
-    """
-    kmax = max((b.k for _, _, bs in groups for b in bs), default=1)
-    idx_all = np.zeros((n_sorted, kmax), np.int32)
-    val_all = np.zeros((n_sorted, kmax), np.float32)
-    krow = np.zeros(n_sorted, np.int32)
-    h_all = np.zeros((n_sorted, 1), np.float32)
-    for _, _, bs in groups:
-        for b in bs:
-            i0 = b.off
-            v = np.asarray(b.val)
-            idx_all[i0:i0 + b.m, :b.k] = np.asarray(b.idx)
-            val_all[i0:i0 + b.m, :b.k] = v
-            krow[i0:i0 + b.m] = (v != 0).sum(axis=1)
-            h_all[i0:i0 + b.m, 0] = np.asarray(b.h)
-    ks = krow.reshape(n_sorted // rps, rps).max(axis=1)
-    # pad to the kernel's 256-step SMEM block (whole-table SMEM operands
-    # hit a ~8 KB Mosaic limit around n_sorted ~61k: blocks stream instead)
-    n_steps_pad = -(-len(ks) // KS_BLOCK) * KS_BLOCK
-    ks = np.pad(ks, (0, n_steps_pad - len(ks)))[:, None]
-    return (jnp.asarray(idx_all), jnp.asarray(val_all),
-            jnp.asarray(ks.astype(np.int32)), jnp.asarray(h_all), kmax)
-
-
-def make_single_sweep_call(n_sorted: int, r: int, kmax: int, rule: str,
-                           kernel_rng: bool = True, rows_per_step: int = 32,
-                           interpret: bool = False, expr_k0: int = 0):
-    """ONE pallas_call for the ENTIRE colored sparse sweep (round-5,
-    VERDICT.md r4 task 4): neighbor gather, local fields, threshold RNG,
-    accept, flip and dE/count reduction all happen in-kernel, with spins
-    [NS, R] f32 VMEM-resident (constant index_map + input/output aliasing,
-    same pattern as the dense FusedSweep).
-
-    Why this wins over the per-color XLA path: XLA's `s_t[idx]` gather
-    MATERIALIZES the [m, k, R] gather to HBM and the einsum reads it back
-    (measured 24.8 ns/edge-row at [10240, 1024]); the in-kernel gather
-    keeps rows in VMEM (measured 9.5 ns/edge-row — probe r5). It also
-    kills the [NS, R] threshold round trip, the per-color concats and the
-    n_colors-per-sweep pallas_call overheads that made the r4 per-color
-    fused-accept variant 7% slower.
-
-    Sequencing: the grid runs color-sorted 32-row steps IN ORDER (TPU
-    grid execution is sequential) over the shared VMEM spin buffer, so a
-    later color's gather sees every earlier color's flips — identical
-    update semantics to make_sorted_t_sweep. Rows within a step belong to
-    one color (color spans are 32-aligned) and colors are independent
-    sets, so intra-step gathers never read rows the step itself flips.
-
-    ``kernel_rng=False`` takes a precomputed threshold array th [NS, R]
-    instead of the on-chip PRNG — bit-identical decisions to
-    make_sorted_t_sweep under the same thresholds (the parity-test mode;
-    also the CPU/interpret path since pltpu.prng_* has no CPU lowering).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    rps = rows_per_step
-    assert n_sorted % rps == 0
-    n_steps = n_sorted // rps
-
-    def body(b, seed_ref, idx_ref, kr_ref, val_ref, h_ref, rng_in,
-             s_io_ref, de_out, cnt_out, th, acc):
-        """rng_in: (mask_ref, nib_ref) for kernel RNG, (th_in_ref,) for
-        precomputed thresholds."""
-        if kernel_rng:
-            mask_ref, nib_ref = rng_in
-            # per-step stream: both key words, step id folded into word 1
-            # with a golden-ratio odd multiply (Mosaic caps prng_seed at 2
-            # values; see make_threshold_call)
-            pltpu.prng_seed(seed_ref[0],
-                            seed_ref[1] ^ (b * jnp.int32(-1640531527)))
-            bits = pltpu.bitcast(pltpu.prng_random_bits((rps, r)),
-                                 jnp.int32)
-            u = bits.astype(jnp.float32) * (1.0 / 4294967296.0) + 0.5
-            if rule == "metropolis":
-                t = jnp.log(u) * nib_ref[:]
-            else:  # glauber
-                t = (jnp.log(u) - jnp.log1p(-jnp.minimum(u, 0.999999))) \
-                    * nib_ref[:]
-            t = jnp.where(u < 1.0, t, -jnp.inf)       # ADVICE r4 #1 guard
-            th[:] = jnp.where(mask_ref[:] < 0, -jnp.inf, t)
-        else:
-            (th_in_ref,) = rng_in
-            th[:] = th_in_ref[:]                      # pre-masked upstream
-        # Gather/field phase: STATICALLY unrolled edge slots with one
-        # scalar per-STEP predicate each. A dynamic per-row fori_loop
-        # measured 20.3 ns/edge vs 2.4 ns static-unrolled (v5e probe —
-        # the loop overhead, not the loads, dominated the v1 kernel); the
-        # step-level `e < ks` guard skips unused high-degree slots for
-        # low-degree steps, and val=0 padding inertly fills the rest.
-        # expr_k0 > 0 accumulates the first slots as one register
-        # expression tree per row (no per-edge acc ref traffic, no
-        # guards; val=0 padding keeps it exact). MEASURED SLOWER on v5e
-        # at [10k, R=1024]: k0=8 -> 560 us/sweep, k0=32 -> 887 vs 475
-        # for the guarded ref-accumulate — the unconditional padded-slot
-        # loads cost more than the acc read/write they save. Default 0.
-        # The accept phase runs vectorized on the whole [rps, R] step
-        # (same-color rows are independent; per-row accepts cost ~500
-        # us/sweep at [10k, 1024] in the v1 kernel).
-        ks = kr_ref[b % KS_BLOCK, 0]
-        k0 = min(kmax, expr_k0)
-        for i in range(rps):
-            # h_ref is VMEM: read the [1, 1] slice and broadcast (scalar
-            # element reads only lower from SMEM)
-            f = jnp.zeros((1, r), jnp.float32) + h_ref[i:i + 1, :]
-            for e in range(k0):
-                f = f + val_ref[i, e] * s_io_ref[pl.ds(idx_ref[i, e], 1), :]
-            acc[i:i + 1, :] = f
-        for e in range(k0, kmax):
-            @pl.when(e < ks)
-            def _(e=e):
-                for i in range(rps):
-                    row = idx_ref[i, e]
-                    acc[i:i + 1, :] = (acc[i:i + 1, :]
-                                       + val_ref[i, e]
-                                       * s_io_ref[pl.ds(row, 1), :])
-        blk = pl.ds(b * rps, rps)
-        s_blk = s_io_ref[blk, :]
-        sf = s_blk * acc[:]
-        a = sf < th[:]
-        s_io_ref[blk, :] = jnp.where(a, -s_blk, s_blk)
-        de_out[:] = de_out[:] + 2.0 * jnp.sum(jnp.where(a, sf, 0.0),
-                                              axis=0, keepdims=True)
-        cnt_out[:] = cnt_out[:] + jnp.sum(a.astype(jnp.float32), axis=0,
-                                          keepdims=True)
-
-    def init_spins(b, s_in_ref, s_io_ref, dma_sem):
-        # s_in stays in HBM (memory_space ANY) and is DMA'd into the VMEM
-        # output window once — a second [NS, R] VMEM input window halved
-        # the serviceable NS*R (16k x 1024 f32 = 64 MB failed Mosaic
-        # allocation with two windows; ~88 MB compiles with one)
-        @pl.when(b == 0)
-        def _():
-            dma = pltpu.make_async_copy(s_in_ref, s_io_ref, dma_sem)
-            dma.start()
-            dma.wait()
-
-    if kernel_rng:
-        def kernel(seed_ref, idx_ref, kr_ref, val_ref, h_ref, mask_ref,
-                   nib_ref, s_in_ref, s_io_ref, de_out, cnt_out,
-                   th, acc, dma_sem):
-            b = pl.program_id(0)
-            init_spins(b, s_in_ref, s_io_ref, dma_sem)
-
-            @pl.when(b == 0)
-            def _():
-                de_out[:] = jnp.zeros_like(de_out)
-                cnt_out[:] = jnp.zeros_like(cnt_out)
-
-            body(b, seed_ref, idx_ref, kr_ref, val_ref, h_ref,
-                 (mask_ref, nib_ref), s_io_ref, de_out, cnt_out, th, acc)
-
-        rng_specs = [
-            pl.BlockSpec((rps, 1), lambda b, s: (b, 0)),      # mask col
-            pl.BlockSpec((1, r), lambda b, s: (0, 0)),        # nib
-        ]
-    else:
-        def kernel(seed_ref, idx_ref, kr_ref, val_ref, h_ref, th_in_ref,
-                   s_in_ref, s_io_ref, de_out, cnt_out, th, acc, dma_sem):
-            b = pl.program_id(0)
-            init_spins(b, s_in_ref, s_io_ref, dma_sem)
-
-            @pl.when(b == 0)
-            def _():
-                de_out[:] = jnp.zeros_like(de_out)
-                cnt_out[:] = jnp.zeros_like(cnt_out)
-
-            body(b, seed_ref, idx_ref, kr_ref, val_ref, h_ref,
-                 (th_in_ref,), s_io_ref, de_out, cnt_out, th, acc)
-
-        rng_specs = [
-            pl.BlockSpec((rps, r), lambda b, s: (b, 0)),      # th_in
-        ]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,           # seed [2] (SMEM scalars)
-        grid=(n_steps,),
-        scratch_shapes=[
-            pltpu.VMEM((rps, r), jnp.float32),        # th
-            pltpu.VMEM((rps, r), jnp.float32),        # acc / f rows
-            pltpu.SemaphoreType.DMA,                  # s_in -> s_io copy
-        ],
-        in_specs=[
-            pl.BlockSpec((rps, kmax), lambda b, s: (b, 0),
-                         memory_space=pltpu.SMEM),     # idx
-            pl.BlockSpec((KS_BLOCK, 1), lambda b, s: (b // KS_BLOCK, 0),
-                         memory_space=pltpu.SMEM),     # ks (step chunk)
-            pl.BlockSpec((rps, kmax), lambda b, s: (b, 0),
-                         memory_space=pltpu.SMEM),     # val (scalar reads)
-            pl.BlockSpec((rps, 1), lambda b, s: (b, 0)),   # h (vector add)
-        ] + rng_specs + [
-            pl.BlockSpec(memory_space=pl.ANY),        # s_in (stays HBM)
-        ],
-        out_specs=(
-            pl.BlockSpec((n_sorted, r), lambda b, s: (0, 0)),
-            pl.BlockSpec((1, r), lambda b, s: (0, 0)),
-            pl.BlockSpec((1, r), lambda b, s: (0, 0)),
-        ),
-    )
-    # operand index of s_in counting the scalar-prefetch seed:
-    # seed, idx, krow, val, h, <2 rng-mode operands or 1 th>, s_in
-    s_in_index = 5 + len(rng_specs)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(
-            jax.ShapeDtypeStruct((n_sorted, r), jnp.float32),
-            jax.ShapeDtypeStruct((1, r), jnp.float32),
-            jax.ShapeDtypeStruct((1, r), jnp.float32),
-        ),
-        input_output_aliases={s_in_index: 0},
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )
+def _materialized(f: jax.Array) -> jax.Array:
+    """``f`` written to memory before its consumers read it. In [NS, R]
+    the sums over spins (dE, flip counts, energy) reduce the major axis;
+    fused with the gathers that produce ``f``, each such reduction became
+    a kernel that took the GPU compiler 20-50 s (a PT program, minutes).
+    Materialized, the gathers compile as plain loop fusions."""
+    return lax.optimization_barrier(f)
 
 
 def make_sorted_t_sweep(groups):
@@ -951,8 +544,8 @@ def make_sorted_t_sweep(groups):
     thresholds [NS, R] f32 (pre-masked). Per color the degree buckets all
     gather from the SAME spin state (independent set) and the color's flips
     apply as one contiguous aligned slice update. Row-gathers in [NS, R]
-    read whole contiguous replica rows — measured 553 vs 797 us/sweep
-    against the [R, NS] minor-dim gathers of make_sorted_sweep."""
+    read whole contiguous replica rows, where the [R, NS] gathers of
+    make_sorted_sweep read one element per replica."""
 
     def sweep(s_t, th_t):
         r = s_t.shape[1]
@@ -961,10 +554,9 @@ def make_sorted_t_sweep(groups):
         for off, mc, bs in groups:
             fs = []
             for b in bs:  # independent: all read the same `s_t`
-                g = s_t[b.idx]                      # [m, k, R]
-                fs.append(jnp.einsum("mkr,mk->mr", g.astype(jnp.float32),
-                                     b.val) + b.h[:, None])
-            f = jnp.concatenate(fs, axis=0) if len(fs) > 1 else fs[0]
+                fs.append(rows_field(s_t, b.idx, b.val) + b.h[:, None])
+            f = _materialized(jnp.concatenate(fs, axis=0) if len(fs) > 1
+                              else fs[0])
             s_c = lax.slice_in_dim(s_t, off, off + mc, axis=0)
             sf = s_c.astype(jnp.float32) * f
             acc = sf < lax.slice_in_dim(th_t, off, off + mc, axis=0)
@@ -979,32 +571,24 @@ def make_sorted_t_sweep(groups):
 
 class SortedSparseTEngine:
     """Transposed ([NS, R]) aligned sorted sliced-ELL engine — the
-    wide-replica sparse fast path on TPU (engines.SweepEngine contract,
-    layout 'nr').
+    wide-replica sparse path (engines.SweepEngine contract, layout 'nr').
 
-    Three measured improvements over SortedSparseEngine on the 10k-spin
-    avg-degree-6 benchmark at R=1024 on v5e (1477 -> 964 us/sweep,
-    6.9 -> 10.6 Gflips/s):
+    Differences from SortedSparseEngine:
     * [NS, R] layout: neighbor gathers read whole contiguous replica rows
       (major-dim gather) instead of minor-dim scattered elements;
-    * tile-aligned color spans + 12 degree buckets (build_sorted_t);
-    * acceptance thresholds generated on-chip by a Pallas PRNG kernel
-      (make_threshold_call) instead of host threefry + accept_threshold.
+    * tile-aligned color spans + 12 degree buckets (build_sorted_t).
     Spins are carried as int8 between sweeps (smaller gather rows and
-    HBM footprint; decisions are identical — spin values are exact in
+    memory footprint; decisions are identical — spin values are exact in
     int8 and fields are accumulated in f32).
 
-    For narrow replica counts (R < 256, e.g. single-ladder PT) the [R, NS]
-    SortedSparseEngine stays faster — make_engine picks by ``r_hint``."""
+    make_engine picks between the two engines by ``r_hint``."""
 
     layout = "nr"
     name = "sparse_sorted_t"
 
     def __init__(self, problem, rule: str = "metropolis",
                  max_colors: int = 256, n_buckets: int = 12,
-                 spin_dtype=jnp.int8, threshold_rng: str = "auto",
-                 accept_kernel: str = "auto", bucket_order: str = "degree",
-                 single_rows_per_step: int = 32):
+                 spin_dtype=jnp.int8, bucket_order: str = "degree"):
         from spinglass_tpu.kernels.sweeps import canonical_rule
 
         self.problem = problem
@@ -1036,102 +620,7 @@ class SortedSparseTEngine:
         self._perm_gather = jnp.asarray(np.where(self.perm >= 0,
                                                  self.perm, 0))
         self._inv_map_j = jnp.asarray(self.inv_map)
-        self._use_pallas_rng = (threshold_rng == "pallas"
-                                or (threshold_rng == "auto"
-                                    and jax.default_backend() == "tpu"))
-        # fused accept (r4 experiment): one Pallas pass does RNG+threshold+
-        # flip+reduce per color instead of the [NS, R] threshold round trip
-        # + XLA elementwise chain. MEASURED SLOWER on v5e at the bench
-        # shape (1021-1027 vs 947-951 us/sweep, interleaved min-of-5 at
-        # scan lengths 100/500): the ~n_colors per-sweep pallas_call
-        # overheads exceed the ~80 MB/sweep threshold-traffic saving.
-        # Off by default; kept as an option (correctness-tested on TPU).
-        self._use_fused_accept = accept_kernel == "fused"
-        if self._use_fused_accept and jax.default_backend() != "tpu":
-            # no CPU path exists: pltpu.prng_seed has no CPU lowering even
-            # in interpret mode — fail at construction, not mid-sweep
-            raise ValueError(
-                "accept_kernel='fused' requires a TPU backend (the "
-                "kernel's on-chip PRNG has no CPU lowering); use the "
-                "default threshold path off-TPU")
-        # single-call whole-sweep kernel (r5, VERDICT r4 task 4): gather +
-        # fields + threshold + flip for ALL colors in ONE pallas_call with
-        # spins VMEM-resident (see make_single_sweep_call). Carries f32
-        # spins ([1, R] f32 rows gather at 1/8 sublane use; int8 rows
-        # would be 1/32 and selects on int8 crash Mosaic — r3 finding).
-        # MEASURED on v5e [10k spins, deg 6, R=1024], marginal protocol:
-        # 478 us/sweep = 21.4 Gflips/s vs the threshold path's 996 us
-        # (10.3 G) — 2.1x, and BELOW the old 553 us "gather floor"
-        # (that floor was an XLA artifact: XLA materializes the [m, k, R]
-        # gather to HBM; the in-kernel gather stays in VMEM). DEFAULT on
-        # TPU via accept_kernel="auto"; falls back to the threshold path
-        # when the replica count is not lane-aligned (r % 128 != 0).
-        self._accept_kernel = accept_kernel
-        # rows per single-kernel grid step; must divide the 32-row color
-        # alignment (32 = measured default; tests use 8 to shrink the
-        # interpret-mode trace ~4x)
-        if single_rows_per_step not in (8, 16, 32):
-            raise ValueError("single_rows_per_step must be 8, 16 or 32")
-        self._srps = single_rows_per_step
-        self._use_single = (accept_kernel == "single"
-                            or (accept_kernel == "auto"
-                                and jax.default_backend() == "tpu"))
-        # instances whose [NS, 128] f32 spins (the MINIMUM lane-aligned
-        # replica width) exceed the VMEM budget can never run the single
-        # kernel — don't build/ship its ~NS*KMAX*8-byte tables (at 1M
-        # spins they cost ~250 MB of HBM and OOM'd the R=1024 threshold
-        # path that auto mode falls back to anyway)
-        if (accept_kernel == "auto" and self._use_single
-                and self.n_sorted * 128 * 4 > self.SINGLE_VMEM_SPIN_BYTES):
-            self._use_single = False
-        if self._use_single:
-            self.spin_dtype = jnp.dtype(jnp.float32)
-            (self._sidx, self._skrow, self._sval, self._sh,
-             self._skmax) = self._single_tables()
-        self._single_calls = {}
         self._sweep = make_sorted_t_sweep(self.groups)
-        self._sweep_fused = make_sorted_t_sweep_fused(
-            self.groups, self.mask_col, self.rule, self.spin_dtype)
-        self._th_calls = {}
-
-    def _single_tables(self):
-        idx_all, val_all, krow, h_all, kmax = build_single_tables(
-            self.groups, self.n_sorted, rps=self._srps)
-        return idx_all, krow, val_all, h_all, kmax
-
-    def _single_call(self, r, kernel_rng, interpret=False):
-        key = (r, kernel_rng, interpret)
-        if key not in self._single_calls:
-            self._single_calls[key] = make_single_sweep_call(
-                self.n_sorted, r, self._skmax, self.rule,
-                kernel_rng=kernel_rng, rows_per_step=self._srps,
-                interpret=interpret)
-        return self._single_calls[key]
-
-    # single-call mode keeps the whole [NS, R] f32 spin array VMEM-resident;
-    # beyond this byte budget (v5e scoped VMEM ~100 MB, minus th/acc
-    # scratches and streamed operands) auto mode falls back to the
-    # threshold path (1M-spin instances would fail Mosaic allocation)
-    SINGLE_VMEM_SPIN_BYTES = 80 * 1024 * 1024
-
-    def _single_fits(self, r: int) -> bool:
-        return self.n_sorted * r * 4 <= self.SINGLE_VMEM_SPIN_BYTES
-
-    def _sweep_single(self, spins_t, beta, key):
-        r = spins_t.shape[1]
-        s32 = spins_t.astype(jnp.float32)
-        if jax.default_backend() == "tpu":
-            beta_r = jnp.broadcast_to(jnp.asarray(beta, jnp.float32), (r,))
-            nib = (-0.5 / beta_r)[None, :]
-            s, de, cnt = self._single_call(r, True)(
-                self._seed_words(key), self._sidx, self._skrow, self._sval,
-                self._sh, self.mask_col, nib, s32)
-        else:  # CPU/interpret: host thresholds (no pltpu PRNG lowering)
-            th = self._thresholds(r, beta, key)
-            s, de, cnt = self._single_call(r, False, interpret=True)(
-                self._seed_words(key), self._sidx, self._skrow, self._sval,
-                self._sh, th, s32)
-        return s, de[0], cnt[0].astype(jnp.int32)
 
     # -- layout ------------------------------------------------------------
     def to_layout(self, spins_rn):
@@ -1146,93 +635,39 @@ class SortedSparseTEngine:
 
     # -- energy (exact, in the transposed layout) --------------------------
     def energy(self, spins_t):
-        s32 = spins_t.astype(jnp.float32)
-        r = spins_t.shape[1]
-        e = jnp.zeros((r,), jnp.float32)
-        for _, _, bs in self.groups:
-            for b in bs:
-                g = s32[b.idx]                     # [m, k, R]
-                fj = jnp.einsum("mkr,mk->mr", g, b.val)
-                s_b = lax.slice_in_dim(s32, b.off, b.off + b.m, axis=0)
-                e = e - 0.5 * jnp.sum(s_b * fj, axis=0) \
-                    - jnp.sum(b.h[:, None] * s_b, axis=0)
-        return e
+        # buckets tile the sorted rows [0, n) in order, so their fields
+        # concatenate into one [n, R] array and the energy is one reduction
+        bs = [b for _, _, g in self.groups for b in g]
+        fj = _materialized(jnp.concatenate(
+            [rows_field(spins_t, b.idx, b.val) for b in bs], axis=0))
+        h = jnp.concatenate([b.h for b in bs])
+        s32 = spins_t[:fj.shape[0]].astype(jnp.float32)
+        return -jnp.sum(s32 * (0.5 * fj + h[:, None]), axis=0)
 
     # -- sweeps ------------------------------------------------------------
-    def _thresholds(self, r, beta, key):
+    def _thresholds(self, uniforms_t, beta):
         from spinglass_tpu.kernels.sweeps import accept_threshold
 
+        r = uniforms_t.shape[1]
         beta = jnp.broadcast_to(jnp.asarray(beta, jnp.float32), (r,))
-        if self._use_pallas_rng and r % 128 == 0:
-            if r not in self._th_calls:
-                self._th_calls[r] = make_threshold_call(
-                    self.n_sorted, r, self.rule)
-            nib = (-0.5 / beta)[None, :]
-            return self._th_calls[r](self._seed_words(key), nib,
-                                     self.mask_col)
-        u = jax.random.uniform(key, (self.n_sorted, r), jnp.float32)
-        th = accept_threshold(u, beta[None, :], self.rule)
+        th = accept_threshold(uniforms_t, beta[None, :], self.rule)
         return jnp.where(self.mask_col < 0, -jnp.inf, th)
 
-    def _seed_words(self, key):
-        """Kernel seed from the key's own counter words (keys are split per
-        sweep upstream; a scalar randint would serialize a threefry against
-        the sweep chain, ~65 us/sweep at R=1024). Both words: 2^64 stream
-        space (ADVICE r3 #1)."""
-        data = jax.random.key_data(key).reshape(-1)
-        return jnp.concatenate([
-            lax.bitcast_convert_type(data[0], jnp.int32).reshape(1),
-            lax.bitcast_convert_type(data[-1], jnp.int32).reshape(1)])
-
     def sweep(self, spins_t, beta, key):
-        r = spins_t.shape[1]
-        if ((self._use_fused_accept
-             or self._accept_kernel == "single") and r % 128 != 0):
-            raise ValueError(
-                f"accept_kernel='fused'/'single' needs replica count % 128 "
-                f"== 0 (got {r}); falling back silently would benchmark "
-                f"the wrong code path")
-        if self._use_single and r % 128 == 0 and self._single_fits(r):
-            # auto mode falls back to the threshold path for unaligned r
-            # or VMEM-overflowing [NS, R] (the explicit 'single' setting
-            # also falls back on overflow — Mosaic would fail allocation)
-            return self._sweep_single(spins_t, beta, key)
-        if self._use_fused_accept:
-            beta_r = jnp.broadcast_to(jnp.asarray(beta, jnp.float32), (r,))
-            nib = (-0.5 / beta_r)[None, :]
-            return self._sweep_fused(spins_t, nib, self._seed_words(key))
-        th = self._thresholds(r, beta, key)
-        return self._sweep(spins_t, th)
+        u = jax.random.uniform(key, spins_t.shape, jnp.float32)
+        return self._sweep(spins_t, self._thresholds(u, beta))
 
     def sweep_with_uniforms(self, spins_t, beta, uniforms_t):
         """Deterministic-uniform entry (tests): uniforms in the SORTED
-        transposed layout — sorted row p consumes uniforms_t[p, :].
-        In single-call mode this drives the no-RNG kernel variant, which
-        must be decision-identical to the per-color XLA sweep under the
-        same thresholds."""
-        from spinglass_tpu.kernels.sweeps import accept_threshold
-
-        r = spins_t.shape[1]
-        beta = jnp.broadcast_to(jnp.asarray(beta, jnp.float32), (r,))
-        th = accept_threshold(uniforms_t, beta[None, :], self.rule)
-        th = jnp.where(self.mask_col < 0, -jnp.inf, th)
-        if self._use_single and r % 128 == 0 and self._single_fits(r):
-            interp = jax.default_backend() != "tpu"
-            s, de, cnt = self._single_call(r, False, interpret=interp)(
-                jnp.zeros((2,), jnp.int32), self._sidx, self._skrow,
-                self._sval, self._sh, th, spins_t.astype(jnp.float32))
-            return s, de[0], cnt[0].astype(jnp.int32)
-        return self._sweep(spins_t, th)
+        transposed layout — sorted row p consumes uniforms_t[p, :]."""
+        return self._sweep(spins_t, self._thresholds(uniforms_t, beta))
 
     # jit-boundary contract (anneal.engines.SweepEngine docstring)
     def operands(self):
-        ops = {"ell": self.ell, "mask_col": self.mask_col,
-               "_perm_gather": self._perm_gather,
-               "_inv_map_j": self._inv_map_j,
-               "buckets": _bucket_arrays(self.groups)}
-        if self._use_single:
-            ops["single"] = (self._sidx, self._skrow, self._sval, self._sh)
-        return ops
+        return {"ell": self.ell, "mask_col": self.mask_col,
+                "_perm_gather": self._perm_gather,
+                "_inv_map_j": self._inv_map_j,
+                "buckets": _bucket_arrays(self.groups)}
 
     def bind(self, ops):
         import copy
@@ -1243,11 +678,7 @@ class SortedSparseTEngine:
         eng._perm_gather = ops["_perm_gather"]
         eng._inv_map_j = ops["_inv_map_j"]
         eng.groups = _rebind_groups(self.groups, ops["buckets"])
-        if self._use_single and "single" in ops:
-            (eng._sidx, eng._skrow, eng._sval, eng._sh) = ops["single"]
         eng._sweep = make_sorted_t_sweep(eng.groups)
-        eng._sweep_fused = make_sorted_t_sweep_fused(
-            eng.groups, eng.mask_col, eng.rule, eng.spin_dtype)
         return eng
 
 
@@ -1306,7 +737,7 @@ class SparseEngine:
                                     uniforms, rule=self.rule)
 
     # jit-boundary contract (anneal.engines.SweepEngine docstring);
-    # ColorGroups is a flax pytree so it passes wholesale
+    # ColorGroups is a pytree so it passes wholesale
     def operands(self):
         return {"ell": self.ell, "masks": self.masks, "groups": self.groups}
 
@@ -1344,7 +775,7 @@ def _rebind_groups(groups, arrays):
 
 
 class SortedSparseEngine:
-    """Sorted sliced-ELL sweep engine — the fast sparse path on TPU.
+    """Sorted sliced-ELL sweep engine — the narrow-replica sparse path.
 
     Improvements over SparseEngine(compact=True), both per sweep:
     * sliced-ELL: per-bucket K = that bucket's max degree instead of the

@@ -7,19 +7,21 @@ axis [R, N]:
 
 1. **Colored sweep** — for sparse/structured coupling graphs. A greedy vertex
    coloring (core/topology.py) guarantees no same-color couplings, so each color
-   class updates all its spins simultaneously with one MXU matmul for the local
+   class updates all its spins simultaneously with one matmul for the local
    fields. Exact Metropolis per color; k matmuls per sweep for a k-coloring.
    This *fixes the reference CUDA kernel's race* (cuda_kernels.py:24-48 updates
    all spins against stale neighbors — wrong detailed balance; SURVEY §5).
 
 2. **Blocked-sequential sweep** — exact sequential-equivalent Metropolis for
    dense J. Spins are processed in blocks of size B: the block's local fields
-   come from one [R,N]x[N,B] MXU matmul, then the B spins update sequentially
+   come from one [R,N]x[N,B] matmul, then the B spins update sequentially
    with a rank-1 running correction H += ds * J[j, block]. Identical to a fully
-   sequential sweep in exact arithmetic, but with all O(N^2) work on the MXU.
+   sequential sweep in exact arithmetic, but with all O(N^2) work in matrix
+   products. On a GPU the B sequential updates run as one Pallas kernel
+   (kernels/block_gpu.py).
 
 Both consume externally supplied uniforms u[R, N] (spin i consumes u[:, i]),
-which makes the Pallas kernels bitwise-comparable with these XLA references and
+which makes the GPU kernel bitwise-comparable with the XLA reference and
 reproduces the reference's pre-generated-randoms design (cuda_kernels.py:244-248).
 
 Update rules (reference core/spin_dynamics.py:131-191):
@@ -39,6 +41,15 @@ from jax import lax
 from spinglass_tpu.core.problem import IsingProblem
 
 UPDATE_RULES = ("metropolis", "glauber", "heat_bath")
+
+# Precision of the sweeps' field products (spins @ J): three bf16 products
+# with f32 accumulation. Spins are exact in bf16 and J is split into two bf16
+# halves, so J keeps 16 mantissa bits (relative error ~1e-5) at a third of
+# the f32 product's time on the H100. TF32, what an f32 product with default
+# precision may run as on a GPU, keeps 10 bits and disagreed with the
+# float64 oracle on 4 of 131072 decisions where this showed none (PERF.md,
+# "Kernel decisions"). Energies (core/energy.py) stay at full f32.
+FIELD_PRECISION = lax.DotAlgorithmPreset.BF16_BF16_F32_X3
 
 
 def canonical_rule(rule: str) -> str:
@@ -132,7 +143,8 @@ def colored_sweep(
 
     def body(carry, mask):
         spins, de_acc, cnt = carry
-        f = jnp.matmul(spins, problem.j, preferred_element_type=jnp.float32)
+        f = jnp.matmul(spins, problem.j, precision=FIELD_PRECISION,
+                       preferred_element_type=jnp.float32)
         f = f + problem.h.astype(jnp.float32)
         sf = spins.astype(jnp.float32) * f
         de = 2.0 * sf
@@ -151,25 +163,24 @@ def colored_sweep(
 # Blocked-sequential sweep (dense J)
 # ---------------------------------------------------------------------------
 
-def _block_inner_xla(sblk, hblk, jbb, ublk, mblk, beta, rule):
+def _block_inner_xla(sblk, hblk, jbb, thblk):
     """Sequentially update B spins of one block with rank-1 field corrections.
 
     sblk [R,B] spins, hblk [R,B] local fields (current, incl. this block's own
-    contribution), jbb [B,B] intra-block couplings, ublk [R,B] uniforms,
-    mblk [B] active mask. Returns (sblk, de_sum[R], cnt[R]).
+    contribution), jbb [B,B] intra-block couplings, thblk [R,B] acceptance
+    thresholds (-inf where a spin must not flip). Returns (sblk, de_sum[R],
+    cnt[R]). The plain reference for kernels.block_gpu.block_inner_pallas.
     """
     r, b = sblk.shape
-    thblk = accept_threshold(ublk, beta[:, None], rule)
 
     def inner(j, carry):
         sblk, hblk, de_acc, cnt = carry
         s_j = lax.dynamic_slice_in_dim(sblk, j, 1, axis=1)[:, 0]
         f_j = lax.dynamic_slice_in_dim(hblk, j, 1, axis=1)[:, 0]
         th_j = lax.dynamic_slice_in_dim(thblk, j, 1, axis=1)[:, 0]
-        m_j = lax.dynamic_slice_in_dim(mblk, j, 1)[0]
         sf = s_j * f_j
         de = 2.0 * sf
-        acc = (sf < th_j) & (m_j > 0)
+        acc = sf < th_j
         ds = jnp.where(acc, -2.0 * s_j, 0.0)
         new_s = (s_j + ds)[:, None]
         sblk = lax.dynamic_update_slice_in_dim(sblk, new_s, j, axis=1)
@@ -184,7 +195,7 @@ def _block_inner_xla(sblk, hblk, jbb, ublk, mblk, beta, rule):
     return sblk, de_acc, cnt
 
 
-@functools.partial(jax.jit, static_argnames=("block_size", "rule"))
+@functools.partial(jax.jit, static_argnames=("block_size", "rule", "inner"))
 def blocked_sweep(
     problem: IsingProblem,
     spins: jax.Array,     # [R, Np]
@@ -192,12 +203,16 @@ def blocked_sweep(
     uniforms: jax.Array,  # [R, Np]
     block_size: int = 128,
     rule: str = "metropolis",
+    inner=_block_inner_xla,
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """One exact sequential-equivalent Metropolis sweep over dense J.
 
     Equivalent (in exact arithmetic) to updating spins 0..N-1 one at a time
     — the semantics of the reference CPU sweep (spin_dynamics.py:61-94, minus
-    its random site order) — at MXU speed.
+    its random site order) — with all O(N^2) work in one matrix product per
+    block. ``inner(sblk, hblk, jbb, thblk)`` runs a block's sequential
+    updates: ``_block_inner_xla`` or the GPU kernel
+    ``kernels.block_gpu.block_inner_pallas``.
     """
     r, n_pad = spins.shape
     if n_pad % block_size != 0:
@@ -205,20 +220,23 @@ def blocked_sweep(
     n_blocks = n_pad // block_size
     beta = _as_replica_beta(beta, r)
     h32 = problem.h.astype(jnp.float32)
+    th = accept_threshold(uniforms, beta[:, None], rule)
+    th = jnp.where(problem.active_mask[None, :] > 0, th, -jnp.inf)
 
     def body(carry, b):
         spins, de_acc, cnt = carry
         i0 = b * block_size
         j_cols = lax.dynamic_slice(problem.j, (0, i0), (n_pad, block_size))
-        hblk = jnp.matmul(spins, j_cols, preferred_element_type=jnp.float32)
+        hblk = jnp.matmul(spins, j_cols, precision=FIELD_PRECISION,
+                          preferred_element_type=jnp.float32)
         hblk = hblk + lax.dynamic_slice(h32, (i0,), (block_size,))[None, :]
         jbb = lax.dynamic_slice(problem.j, (i0, i0), (block_size, block_size))
         jbb = jbb.astype(jnp.float32)
-        ublk = lax.dynamic_slice(uniforms, (0, i0), (r, block_size))
+        thblk = lax.dynamic_slice(th, (0, i0), (r, block_size))
         sblk = lax.dynamic_slice(spins, (0, i0), (r, block_size))
-        mblk = lax.dynamic_slice(problem.active_mask, (i0,), (block_size,))
-        sblk, de_b, cnt_b = _block_inner_xla(sblk, hblk, jbb, ublk, mblk, beta, rule)
-        spins = lax.dynamic_update_slice(spins, sblk, (0, i0))
+        sblk, de_b, cnt_b = inner(sblk, hblk, jbb, thblk)
+        spins = lax.dynamic_update_slice(spins, sblk.astype(spins.dtype),
+                                         (0, i0))
         return (spins, de_acc + de_b, cnt + cnt_b), None
 
     init = (spins, jnp.zeros((r,), jnp.float32), jnp.zeros((r,), jnp.int32))
@@ -233,7 +251,7 @@ def blocked_sweep(
 def sequential_sweep_oracle(j, h, spins, beta, uniforms, rule="metropolis"):
     """Numpy float64 single-replica sequential Metropolis sweep, spin order 0..N-1.
 
-    Ground truth for blocked_sweep / Pallas kernels; mirrors the reference's
+    Ground truth for blocked_sweep and its GPU kernel; mirrors the reference's
     minimal fallback semantics (core/minimal_ising.py:123-162) with deterministic
     site order and the same dE = 2 s_i field_i bookkeeping.
     """

@@ -5,7 +5,7 @@ The reference's only native code was three inline CUDA strings compiled with
 torch's load_inline (cuda_kernels.py:174-221, with nvcc detection and torch
 fallbacks). Same architecture here for the *host* side: compile-on-demand,
 cached .so, graceful numpy fallback — but targeting the encode/graph paths
-(the TPU compute path is Pallas, kernels/metropolis_pallas.py)."""
+(the device compute path is XLA plus the Pallas kernel in kernels/block_gpu.py)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 // Native host-side kernels for spinglass_tpu.
 //
-// The TPU compute path is JAX/Pallas; these C++ routines cover the *host*
+// The device compute path is JAX/Pallas; these C++ routines cover the *host*
 // hot paths that the reference ran as slow Python loops: problem encoding
 // (constraint term generation, the dominant cost of large scheduling/TSP
 // encodes — reference scheduling.py:247-267 is O(T^2 A^2 S^2) Python),

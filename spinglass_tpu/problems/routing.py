@@ -9,7 +9,7 @@ once.
 
 VRP uses x_{customer,pos,vehicle} route-position encoding (n*P*K spins):
 per-vehicle tours through assigned positions, each customer served exactly
-once, depot implicit at route ends (a TPU-friendlier reformulation of the
+once, depot implicit at route ends (a more compact reformulation of the
 reference's arc encoding x_{i,j,k}, routing.py:416-569 — same capability,
 quadratically fewer spins than n^2*K arcs)."""
 
@@ -316,7 +316,7 @@ class VRPArcProblem(ProblemTemplate):
 
     Self-arcs x[i, i, k] are suppressed with field penalties. All terms are
     built vectorized and scattered once (no per-coupling set_coupling calls).
-    The position-based ``VRPProblem`` above stays the TPU-friendlier default
+    The position-based ``VRPProblem`` above stays the more compact default
     (quadratically fewer spins); this class is the reference-parity encoding.
     """
 

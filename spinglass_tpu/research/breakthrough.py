@@ -7,10 +7,10 @@ FederatedOptimizationNetwork (:280), and BreakthroughResearchFramework
 (baseline SA vs each variant over repeated trials with significance stats).
 
 Here each "breakthrough" annealer is a thin, uniformly-shaped class over the
-jitted TPU implementations that already exist in this package
+jitted implementations that already exist in this package
 (research/novel.py, research/federated.py); the framework composes them with
 the statistics machinery of research/validation.py so one call reproduces
-the reference's validation report format on TPU.
+the reference's validation report format.
 """
 
 from __future__ import annotations

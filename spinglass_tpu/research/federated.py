@@ -15,7 +15,6 @@ import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
-import jax
 import numpy as np
 
 from spinglass_tpu.anneal.sa import SAConfig, anneal
@@ -63,7 +62,6 @@ class FederatedAnnealingServer:
                 initial_temp=params["initial_temp"],
                 final_temp=0.01, alpha=params["alpha"],
                 total_sweeps=self.cfg.local_sweeps),
-            use_pallas="never" if jax.default_backend() != "tpu" else "auto",
             enable_early_stop=False,
             seed=self.cfg.seed + 97 * rnd + client_id))
         first = float(res.mean_energy_history[0]) if len(

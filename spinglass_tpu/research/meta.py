@@ -15,7 +15,6 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
-import jax
 import numpy as np
 
 from spinglass_tpu.anneal.sa import SAConfig, anneal
@@ -116,15 +115,13 @@ class MetaOptimizer:
         emb = characterize(problem)
         algo = algorithm or select_algorithm(problem)
         params = self.memory.suggest(emb)
-        use_pallas = ("never" if jax.default_backend() != "tpu" else "auto")
         t0 = time.perf_counter()
         if algo == "pt":
             from spinglass_tpu.anneal import pt as pt_mod
 
             res = pt_mod.run(problem, pt_mod.PTConfig(
                 n_replicas=min(self.n_replicas, 16), n_sweeps=self.n_sweeps,
-                max_temp=params["initial_temp"], use_pallas=use_pallas,
-                seed=self.seed))
+                max_temp=params["initial_temp"], seed=self.seed))
         elif algo == "sqa":
             from spinglass_tpu.research.quantum import (SQAConfig,
                                                         simulated_quantum_annealing)
@@ -144,7 +141,7 @@ class MetaOptimizer:
                         initial_temp=params["initial_temp"],
                         final_temp=0.01, alpha=params["alpha"],
                         total_sweeps=self.n_sweeps),
-                    use_pallas=use_pallas, seed=self.seed)))
+                    seed=self.seed)))
         else:
             res = anneal(problem, SAConfig(
                 n_sweeps=self.n_sweeps, n_replicas=self.n_replicas,
@@ -152,8 +149,7 @@ class MetaOptimizer:
                     ScheduleType.GEOMETRIC,
                     initial_temp=params["initial_temp"], final_temp=0.01,
                     alpha=params["alpha"], total_sweeps=self.n_sweeps),
-                use_pallas=use_pallas, enable_early_stop=False,
-                seed=self.seed))
+                enable_early_stop=False, seed=self.seed))
         runtime = time.perf_counter() - t0
         # score: normalized energy improvement per second
         first = (float(res.mean_energy_history[0])

@@ -8,7 +8,7 @@ an agent that looks at a problem instance, proposes an annealing strategy
 plus an episodic memory of past solves, executes it, and improves from the
 outcome.
 
-TPU-native design: the strategy network is a flax MLP whose regression fit
+Design: the strategy network is a plain-JAX MLP whose regression fit
 runs as one jitted full-batch Adam loop over the episodic dataset (the
 reference trains a torch net sample-by-sample); the solves it controls are
 the jitted SA/PT engines. The architecture search is a host-side
@@ -25,12 +25,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
 
 from spinglass_tpu.anneal.sa import SAConfig, anneal
 from spinglass_tpu.anneal.schedules import ScheduleConfig, ScheduleType
 from spinglass_tpu.core.problem import IsingProblem
 from spinglass_tpu.research.meta import characterize
+from spinglass_tpu.rl.mlp import MLP
 
 EMBED_DIM = 8       # characterize() feature vector
 STRATEGY_DIM = 3    # [log10 T0, logit(alpha scaled), log2 replica-mult]
@@ -149,20 +149,14 @@ class EpisodicMemory:
 # Meta-learning network
 # ---------------------------------------------------------------------------
 
-class MetaLearningNetwork(nn.Module):
+class MetaLearningNetwork(MLP):
     """MLP: problem embedding -> strategy vector (reference
     MetaLearningNetwork, adaptive_meta_rl.py:284-383)."""
 
-    hidden_sizes: Tuple[int, ...] = (64, 64)
-    out_dim: int = STRATEGY_DIM
-
-    @nn.compact
-    def __call__(self, x):
-        for h in self.hidden_sizes:
-            x = nn.Dense(h)(x)
-            x = nn.LayerNorm()(x)
-            x = nn.tanh(x)
-        return nn.Dense(self.out_dim)(x)
+    def __init__(self, hidden_sizes: Tuple[int, ...] = (64, 64),
+                 out_dim: int = STRATEGY_DIM):
+        super().__init__(hidden_sizes, out_dim, activation=jnp.tanh,
+                         layer_norm=True)
 
 
 def fit_meta_network(model: MetaLearningNetwork, x: np.ndarray,
@@ -340,15 +334,13 @@ class AdaptiveMetaRLAgent:
     def solve(self, problem: IsingProblem):
         emb, strat, source = self.propose(problem)
         n_rep = max(4, int(round(self.cfg.n_replicas * strat["replica_mult"])))
-        use_pallas = "never" if jax.default_backend() != "tpu" else "auto"
         res = anneal(problem, SAConfig(
             n_sweeps=self.cfg.n_sweeps, n_replicas=n_rep,
             schedule=ScheduleConfig(
                 ScheduleType.GEOMETRIC, initial_temp=strat["initial_temp"],
                 final_temp=0.01, alpha=strat["alpha"],
                 total_sweeps=self.cfg.n_sweeps),
-            use_pallas=use_pallas, enable_early_stop=False,
-            seed=self.cfg.seed + self.n_solves))
+            enable_early_stop=False, seed=self.cfg.seed + self.n_solves))
         first = (float(res.mean_energy_history[0])
                  if len(res.mean_energy_history) else 0.0)
         score = (first - res.best_energy) / max(abs(first), 1e-9)

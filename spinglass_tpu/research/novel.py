@@ -1,4 +1,4 @@
-"""The reference's three headline 'novel' algorithms, rebuilt TPU-first
+"""The reference's three headline 'novel' algorithms, rebuilt in JAX
 (research/novel_algorithms.py:65-770):
 
 * AQIA — adaptive quantum-inspired annealing: per-spin probability-amplitude
@@ -9,7 +9,7 @@
   the graph, the coarse problem is solved with the standard annealer, the
   solution lifts back and refines (:253-498). Host-driven recursion around
   jitted solves.
-* LESD — learning-enhanced spin dynamics: a small flax MLP scores spins from
+* LESD — learning-enhanced spin dynamics: a small MLP scores spins from
   local features and biases proposal selection; trained online from observed
   dE (:499-770)."""
 
@@ -23,7 +23,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import linen as nn
 from jax import lax
 
 from spinglass_tpu.anneal.result import AnnealResult
@@ -31,6 +30,7 @@ from spinglass_tpu.anneal.sa import SAConfig, anneal
 from spinglass_tpu.anneal.schedules import ScheduleConfig
 from spinglass_tpu.core import energy as energy_ops
 from spinglass_tpu.core.problem import IsingProblem, random_spins
+from spinglass_tpu.rl.mlp import MLP
 
 
 # ---------------------------------------------------------------------------
@@ -198,8 +198,7 @@ def multi_scale_optimization(problem: IsingProblem,
             init[:, : len(lifted)] = lifted
             init = jnp.asarray(init)
         res = anneal(pl, SAConfig(
-            n_sweeps=sweeps, n_replicas=cfg.n_replicas, use_pallas="never"
-            if jax.default_backend() != "tpu" else "auto",
+            n_sweeps=sweeps, n_replicas=cfg.n_replicas,
             schedule=ScheduleConfig(
                 initial_temp=2.0 if init is None else 0.5, final_temp=0.01),
             enable_early_stop=False, seed=cfg.seed + li),
@@ -218,15 +217,17 @@ def multi_scale_optimization(problem: IsingProblem,
 # LESD
 # ---------------------------------------------------------------------------
 
-class SpinScorer(nn.Module):
-    """Tiny per-spin MLP on local features [s, f, s*f]."""
+class SpinScorer:
+    """Tiny per-spin MLP on local features [s, f, s*f] -> score [...]."""
 
-    hidden: int = 16
+    def __init__(self, hidden: int = 16):
+        self.mlp = MLP((hidden,), 1, activation=jax.nn.relu)
 
-    @nn.compact
-    def __call__(self, feats):  # [..., 3]
-        x = nn.relu(nn.Dense(self.hidden)(feats))
-        return nn.Dense(1)(x)[..., 0]
+    def init(self, key, feats):
+        return self.mlp.init(key, feats)
+
+    def apply(self, params, feats):  # [..., 3]
+        return self.mlp.apply(params, feats)[..., 0]
 
 
 @dataclass(frozen=True)
@@ -360,7 +361,6 @@ def quantum_error_corrected_annealing(problem: IsingProblem,
         n_sweeps=cfg.n_sweeps, n_replicas=cfg.n_replicas,
         schedule=ScheduleConfig(initial_temp=3.0, final_temp=0.01,
                                 total_sweeps=cfg.n_sweeps),
-        use_pallas="never" if jax.default_backend() != "tpu" else "auto",
         enable_early_stop=False, seed=cfg.seed))
     # majority decode
     phys = res.best_spins[: n * rep].reshape(n, rep)

@@ -11,7 +11,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
-import jax
 import numpy as np
 
 from spinglass_tpu.anneal.sa import SAConfig, anneal
@@ -107,7 +106,6 @@ def optimize(problems: Sequence[IsingProblem],
         combined = combine(problems, w)
         res = anneal(combined, SAConfig(
             n_sweeps=cfg.n_sweeps, n_replicas=cfg.n_replicas,
-            use_pallas="never" if jax.default_backend() != "tpu" else "auto",
             enable_early_stop=False, seed=cfg.seed + wi))
         s = np.ones(problems[0].n_padded)
         s[:n] = res.best_spins

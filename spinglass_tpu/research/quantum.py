@@ -10,12 +10,12 @@ imaginary-time slices:
                - J_perp * sum_p sum_i s_{p,i} s_{p+1,i}        (periodic in p)
     J_perp   = -(1/(2 beta)) * ln tanh(beta * Gamma / P)  > 0
 
-TPU-first design: instead of the reference's per-site Python Metropolis on
+Design: instead of the reference's per-site Python Metropolis on
 the quantum action (quantum_hybrid_algorithms.py:262-402), we *compile the
 Trotter system into an ordinary IsingProblem of P*N spins* (block-diagonal
 J/P + inter-slice ferromagnetic couplings) and reuse the exact batched sweep
-engines — the Trotter axis becomes part of the one dense spin axis the MXU
-already chews through. SQA then anneals Gamma on a schedule, rebuilding the
+engines — the Trotter axis becomes part of the one dense spin axis the
+sweep's matrix products already cover. SQA then anneals Gamma on a schedule, rebuilding the
 (cheap, host-side) inter-slice coupling each stage."""
 
 from __future__ import annotations
@@ -102,7 +102,6 @@ def simulated_quantum_annealing(problem: IsingProblem,
             schedule=ScheduleConfig(ScheduleType.CONSTANT,
                                     initial_temp=1.0 / cfg.beta,
                                     final_temp=1.0 / cfg.beta),
-            use_pallas="never" if jax.default_backend() != "tpu" else "auto",
             enable_early_stop=False, seed=cfg.seed + stage)
         key, sub = jax.random.split(key)
         res = anneal(tp, sa_cfg, key=sub, init_spins=spins)
@@ -166,7 +165,6 @@ def path_integral_monte_carlo(problem: IsingProblem,
         schedule=ScheduleConfig(ScheduleType.CONSTANT,
                                 initial_temp=1.0 / cfg.beta,
                                 final_temp=1.0 / cfg.beta),
-        use_pallas="never" if jax.default_backend() != "tpu" else "auto",
         enable_early_stop=False, seed=cfg.seed)
     res = anneal(tp, sa_cfg)
     slices = res.best_spins[: cfg.n_trotter * n].reshape(cfg.n_trotter, n)

@@ -2,7 +2,7 @@
 
 Rebuilds the reference's top research facade — ProblemAnalyzer
 (unified_research_framework.py:137), AlgorithmSelector (:338), and
-UnifiedResearchFramework (:541-1039) — by composing the existing TPU-native
+UnifiedResearchFramework (:541-1039) — by composing the existing
 tiers: research/meta.py's embedding + selector, the SA/PT/adaptive/SQA
 solvers, research/validation.py's statistics, and research/novel.py's
 algorithm comparison harness. One object gives the reference's "hand me a

@@ -4,7 +4,7 @@ The reference exposes its RL environment as a ``gymnasium.Env``
 (rl_integration/environment.py:51 ``class SpinGlassEnv(gym.Env)``); this
 framework's native environment is a pure-functional BATCHED env (rl/env.py —
 vectorized over n_envs, jit/scan-friendly, used by the PPO/DQN trainers).
-This module closes the literal API-surface gap (VERDICT.md r3 missing #3):
+This module closes the literal API-surface gap:
 a single-instance ``gymnasium.Env`` shim over the functional core so
 external RL libraries (SB3, CleanRL, ...) can drive the annealer directly.
 
@@ -73,7 +73,7 @@ class SpinGlassGymEnv(gymnasium.Env if gymnasium else object):
                         if engine == "auto" else engine)
         eng = self._engine
         if eng is not None and hasattr(eng, "operands"):
-            # ADR-0004 operands-as-arguments contract (ADVICE.md r4 #2):
+            # ADR-0004 operands-as-arguments contract:
             # problem + engine arrays cross the jit boundary as traced
             # ARGUMENTS, not closure constants, so large instances don't
             # embed J in the HLO (278 MB executables) and a new problem

@@ -25,7 +25,8 @@ from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from spinglass_tpu.core import pytree
 
 N_NOVELTY_BINS = 256
 
@@ -51,7 +52,7 @@ class RewardConfig:
     difficulty_ramp: float = 1.0
 
 
-@struct.dataclass
+@pytree.dataclass
 class RewardState:
     de_scale: jax.Array        # [B] EMA of |dE| for adaptive normalization
     reward_ema: jax.Array      # [B]

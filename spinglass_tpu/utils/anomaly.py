@@ -2,8 +2,8 @@
 
 Rebuilds the reference's adaptive monitoring tier — AnomalyDetector and
 SelfHealingSystem (monitoring/adaptive_monitoring_system.py:229-452) and the
-AdaptiveMonitoringSystem facade (:229-691) — for the TPU runtime: the metrics
-that matter here are sweep throughput, device-dispatch latency, HBM headroom,
+AdaptiveMonitoringSystem facade (:229-691) — for the JAX runtime: the metrics
+that matter here are sweep throughput, device-dispatch latency, memory headroom,
 and acceptance-rate collapse, and the healing actions adjust JAX-side knobs
 (shrink replica batch, clear compile caches, re-make engines) instead of the
 reference's thread-pool restarts.

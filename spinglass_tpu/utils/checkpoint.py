@@ -72,7 +72,7 @@ def load_pytree(template: Any, path: str) -> Any:
                     stored = z[key]
                     # jnp.asarray would silently accept a wrong shape (and
                     # cast across dtype kinds, e.g. a float-spins checkpoint
-                    # into an int8-layout engine — ADVICE.md r3 #5); fail
+                    # into an int8-layout engine); fail
                     # loudly instead
                     if stored.shape != tmpl.shape:
                         raise CheckpointError(

@@ -16,7 +16,7 @@ class AnnealingError(SpinGlassError):
 
 
 class DeviceError(SpinGlassError):
-    """TPU/device availability or placement problem."""
+    """Device availability or placement problem."""
 
 
 class ValidationError(SpinGlassError):
@@ -44,7 +44,8 @@ def handle_jax_errors(fn):
             raise AnnealingError(f"numerical failure in {fn.__name__}: {e}")
         except RuntimeError as e:
             msg = str(e).lower()
-            if "device" in msg or "tpu" in msg or "backend" in msg:
+            if ("device" in msg or "gpu" in msg or "cuda" in msg
+                    or "backend" in msg):
                 raise DeviceError(str(e)) from e
             raise
 

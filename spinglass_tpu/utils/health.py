@@ -111,7 +111,7 @@ def check_dependencies() -> CheckResult:
     """Reference DependencyCheck (health_checks.py:367-431)."""
     t0 = time.perf_counter()
     missing = []
-    for mod in ("jax", "flax", "optax", "numpy"):
+    for mod in ("jax", "optax", "numpy"):
         try:
             __import__(mod)
         except ImportError:

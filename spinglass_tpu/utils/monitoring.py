@@ -2,7 +2,7 @@
 
 Rebuilds the reference's monitor stack (utils/monitoring.py:39-433,
 utils/comprehensive_monitoring.py:47-203, utils/advanced_monitoring.py:80-166
-CircuitBreaker) sized to what a JAX/TPU framework actually needs: host
+CircuitBreaker) sized to what a JAX framework actually needs: host
 psutil sampling in a background thread, device memory via
 jax.local_devices()[0].memory_stats(), per-operation counters, and a circuit
 breaker for retryable device work."""

@@ -1,7 +1,7 @@
 """Profiling: per-phase timers + jax.profiler trace hooks.
 
 Rebuilds utils/performance.py:386-543 (PerformanceProfiler + @profile) with
-the TPU-native addition: device traces via jax.profiler for offline analysis
+one addition: device traces via jax.profiler for offline analysis
 in XProf/TensorBoard (SURVEY §5 'tracing/profiling')."""
 
 from __future__ import annotations

@@ -111,11 +111,9 @@ class TestQualityGates:
         assert rep["summary"]["total"] == 3
 
 
-class TestBenchGroupSalvage:
-    """bench.py --all's grouped secondary paths: per-path lines must be
-    recoverable from a killed group's PARTIAL stdout (the r3 driver
-    artifact was parsed:null precisely because nothing partial survived a
-    timeout)."""
+class TestBenchScript:
+    """bench.py: one process, compact last line; and the headline bodies'
+    refusal to report numbers measured on anything but a GPU."""
 
     def _bench_mod(self):
         import importlib.util
@@ -128,41 +126,52 @@ class TestBenchGroupSalvage:
         spec.loader.exec_module(mod)
         return mod
 
-    def test_parse_complete_and_missing(self):
+    def test_compact_line_is_small(self):
         b = self._bench_mod()
-        out = (
-            '{"path": "pt10k", "metric": "m", "value": 1.0, "unit": "s"}\n'
-            "some stray log line\n"
-            '{"path": "sparse", "metric": "m", "value": 2.0, "unit": "f"}\n'
-            '{"path": "rl", "metric": "m", "va'   # truncated by the kill
-        )
-        r = b._parse_group_lines(out, ("pt10k", "sparse", "rl", "ttt"),
-                                 "group timeout after 12s")
-        assert r["pt10k"]["value"] == 1.0
-        assert r["sparse"]["value"] == 2.0
-        assert r["rl"] == {"error": "group timeout after 12s"}
-        assert r["ttt"] == {"error": "group timeout after 12s"}
+        result = {"metric": "m", "value": 1.0, "unit": "u",
+                  "vs_baseline": 2.0,
+                  "extras": {"pt10k": {"value": 0.5, "x": list(range(999))},
+                             "ttt": {"error": "E" * 5000},
+                             "n_spins": 4096}}
+        out = b._compact(result)
+        assert out["paths"]["pt10k"] == 0.5
+        assert len(out["paths"]["ttt"]["error"]) == 80
+        assert len(json.dumps(out)) < 1000
 
-    def test_in_path_error_lines_pass_through(self):
-        b = self._bench_mod()
-        out = '{"path": "ttt", "error": "RuntimeError: hash mismatch"}'
-        r = b._parse_group_lines(out, ("ttt",), "unused")
-        assert "hash mismatch" in r["ttt"]["error"]
+    def test_bench_refuses_cpu(self):
+        """Run as a script on the CPU it exits non-zero and prints no
+        result line."""
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
+        proc = subprocess.run([sys.executable, "bench.py", "--pt10k"],
+                              cwd=repo, env=env, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode != 0
+        assert "refusing" in proc.stderr
+        assert not [l for l in proc.stdout.splitlines()
+                    if l.startswith("{")]
+
+    @pytest.mark.parametrize("path", ["dense", "sparse", "pt10k", "rl",
+                                      "ttt"])
+    def test_headline_bodies_refuse_cpu(self, path):
+        from spinglass_tpu.benchmarks import headline
+
+        with pytest.raises(RuntimeError, match="refusing"):
+            headline.PATHS[path]()
 
 
 class TestBenchCommand:
     def test_sgt_bench_pt10k(self, runner, monkeypatch):
         """`sgt bench` exposes the headline bodies to installed-package
-        users (repo-root bench.py is not shipped). The cache kill-switch
-        keeps the command from flipping jax_compilation_cache_dir for the
-        rest of this test process."""
+        users (repo-root bench.py is not shipped). Off a GPU it fails and
+        prints no number. JAX_COMPILATION_CACHE_DIR keeps the command from
+        flipping jax_compilation_cache_dir for the rest of this process."""
         from spinglass_tpu.cli import main as cli_main
 
-        monkeypatch.setenv("SPINGLASS_JAX_CACHE", "0")
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "/nonexistent")
         res = runner.invoke(cli_main, ["bench", "--path", "pt10k"])
-        assert res.exit_code == 0, res.output
-        line = [l for l in res.output.splitlines()
-                if l.startswith("{")][-1]
-        d = json.loads(line)
-        assert d["metric"] == "pt_10k_wall_seconds"
-        assert d["value"] > 0
+        assert res.exit_code != 0
+        assert "refusing" in str(res.exception)
+        assert not [l for l in res.output.splitlines()
+                    if l.startswith("{")]

@@ -266,7 +266,7 @@ class TestLadderTuning:
 
 
 class TestCheckpointResume:
-    """Driver-level checkpoint/resume (VERDICT.md missing #4; reference
+    """Driver-level checkpoint/resume (reference
     batch_processor.py:521-531 + training_pipeline.py:437-507 save AND
     load). Kill-and-resume must reproduce the uninterrupted run under a
     fixed seed."""
@@ -313,7 +313,7 @@ class TestCheckpointResume:
         """A checkpoint written under one engine layout must not silently
         restore into another (auto-dispatch can change the spin carrier,
         e.g. f32 [R,N] -> int8 [NS,R]); the resume fails with pinning
-        advice instead (ADVICE.md r3 #5)."""
+        advice instead."""
         from spinglass_tpu.utils.checkpoint import CheckpointError
 
         p = _problem(24, seed=9)
@@ -377,7 +377,7 @@ class TestCheckpointResume:
 
 class TestMultiChainPT:
     """n_chains > 1: independent PT chains sharing one ladder, swept in one
-    lockstep batch (the TPU-native way to fill the chip at small ladders)."""
+    lockstep batch (the way to fill the device at small ladders)."""
 
     def test_chains_run_and_slots_stay_permutations(self):
         p = _problem(24, seed=8)
@@ -420,7 +420,7 @@ class TestMultiChainPT:
 
 class TestPTExchangeModes:
     """All-pairs exchange + cluster-move mixing + slot trajectories
-    (VERDICT.md next-round #5/#6; reference parallel_tempering.py:222-232,
+    (reference parallel_tempering.py:222-232,
     323-410)."""
 
     def test_all_pairs_runs_and_exchanges(self):
@@ -529,6 +529,32 @@ class TestSignatureSharedSolverCache:
         cold = pt_mod.run(p2, cfg)
         assert warm.best_energy == cold.best_energy
         np.testing.assert_array_equal(warm.best_spins, cold.best_spins)
+
+    def test_repeat_anneal_traces_init_once(self, monkeypatch):
+        """Repeated anneal() on one sparse problem object reuses the cached
+        jitted state initialisation instead of tracing it again."""
+        from spinglass_tpu.anneal.jit_cache import sa_cache
+        from spinglass_tpu.kernels.sparse import EllProblem
+
+        traces = []
+        real_init = SA.init_state
+
+        def counting_init(*a, **k):
+            traces.append(1)
+            return real_init(*a, **k)
+
+        monkeypatch.setattr(SA, "init_state", counting_init)
+        coo = topology.sparse_random_graph_coo(64, avg_degree=4.0,
+                                               dist="gaussian", seed=2)
+        ell = EllProblem.from_coo(64, *coo)
+        cfg = SA.SAConfig(n_sweeps=20, n_replicas=4, record_interval=10,
+                          enable_early_stop=False, seed=1)
+        sa_cache().clear()
+        first = SA.anneal(ell, cfg)
+        second = SA.anneal(ell, cfg)
+        assert len(traces) == 1
+        assert first.best_energy == second.best_energy
+        sa_cache().clear()
 
     def test_different_n_spins_do_not_collide(self):
         # same padded shape (both pad to 128) but different logical size:

@@ -88,52 +88,3 @@ def test_energy_identity_and_padding(kind, n, extra, rule, seed):
         s1b, deb, cntb = eng.bind(eng.operands()).sweep(
             s, jnp.float32(0.8), jax.random.key(seed + 1))
         np.testing.assert_array_equal(np.asarray(s1), np.asarray(s1b))
-
-
-SINGLE_CASES = [
-    # (n, avg_degree, rule, r, bucket_order, seed)
-    (97, 2.0, "metropolis", 128, "degree", 11),
-    (300, 9.5, "glauber", 128, "index", 12),
-    (513, 1.2, "metropolis", 256, "degree", 13),
-    (150, 5.0, "glauber", 128, "index", 14),   # with external fields
-]
-
-
-@pytest.mark.parametrize("n,deg,rule,r,order,seed", SINGLE_CASES)
-def test_single_call_sweep_fuzz(n, deg, rule, r, order, seed):
-    """Single-call whole-sweep kernel (r5) on awkward shapes: exact
-    decision parity with the per-color XLA sweep under shared thresholds,
-    energy identity, and padding invariance — across rules, replica
-    widths, bucket orders, and nonzero fields."""
-    from spinglass_tpu.kernels.sparse import SortedSparseTEngine
-
-    coo = topology.sparse_random_graph_coo(n, avg_degree=deg,
-                                           dist="gaussian", seed=seed)
-    rows, cols, vals = coo
-    ell = EllProblem.from_coo(n, rows, cols, vals)
-    if seed == 14:  # exercise the h path
-        h = np.random.default_rng(seed).normal(0, 0.5, n).astype(np.float32)
-        ell = EllProblem.from_coo(n, rows, cols, vals, h=h)
-    base = SortedSparseTEngine(ell, rule=rule, bucket_order=order)
-    single = SortedSparseTEngine(ell, rule=rule, accept_kernel="single",
-                                 bucket_order=order)
-    key = jax.random.key(seed)
-    s_rn = random_spins(key, (r, ell.n_padded), ell.active_mask)
-    u = jax.random.uniform(jax.random.key(seed + 1),
-                           (base.n_sorted, r), jnp.float32)
-    sb, deb, cb = base.sweep_with_uniforms(
-        base.to_layout(s_rn), jnp.float32(0.8), u)
-    ss, des, cs = single.sweep_with_uniforms(
-        single.to_layout(s_rn), jnp.float32(0.8), u)
-    np.testing.assert_array_equal(np.asarray(sb, np.float32), np.asarray(ss))
-    np.testing.assert_array_equal(np.asarray(cb), np.asarray(cs))
-    np.testing.assert_allclose(np.asarray(deb), np.asarray(des),
-                               rtol=1e-4, atol=1e-2)
-    e0 = single.energy(single.to_layout(s_rn))
-    np.testing.assert_allclose(np.asarray(e0 + des),
-                               np.asarray(single.energy(ss)),
-                               rtol=1e-4, atol=5e-2)
-    back = np.asarray(single.from_layout(ss))
-    pad = np.asarray(ell.active_mask) == 0
-    if pad.any():
-        np.testing.assert_array_equal(back[:, pad], 1.0)

@@ -2,13 +2,13 @@
 
 Every engine must expose operands()/bind() covering ALL device arrays its
 traced paths read: a missed attribute silently reverts to an HLO closure
-constant, re-creating the compile blowup round 4 fixed (64 s vs 9 s
-compiles, 278 MB executables, HTTP-413 oversize at N=8192). The guard is
+constant: J rides along with every compile and serializes into every
+executable. The guard is
 structural: lower a bound program and sum the bytes of large dense<...>
 literals in the StableHLO text — an embedded 512-spin J alone contributes
 ~2 MB (measured); clean programs carry ~0 (program CODE can legitimately
 be megabytes in Pallas interpret mode, so raw text length is not used).
-This caught two real holes when first written: FusedSweep missing
+This caught two real holes when first written: a kernel engine missing
 problem.active_mask, and SwendsenWang.bind copying a _sweep_jit bound to
 the original (unbound) instance.
 """
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from spinglass_tpu.anneal.engines import make_engine
+from spinglass_tpu.anneal.engines import BlockedEngine, make_engine
 from spinglass_tpu.core import topology
 from spinglass_tpu.core.problem import IsingProblem, random_spins
 from spinglass_tpu.kernels.sparse import EllProblem
@@ -59,14 +59,10 @@ ENGINES = {
     "blocked": lambda: (lambda p: (p, make_engine(
         p, sweep_method="blocked")))(_dense_problem()),
     "colored": _colored,
-    # slow-marked: interpret-mode TRACING of the unrolled kernel costs
-    # ~20 s regardless of problem size; an embedded 192-spin J (~150 KB
-    # of dense text) still trips the 64 KB constant threshold
-    "pallas_interpret": pytest.param(
-        lambda: (lambda p: (p, make_engine(
-            p, sweep_method="blocked", use_pallas="always")))(
-                _dense_problem(192)),
-        marks=pytest.mark.slow),
+    # the GPU block kernel in Pallas interpret mode; an embedded 192-spin
+    # J (~150 KB of dense text) would trip the 64 KB constant threshold
+    "pallas_interpret": lambda: (lambda p: (p, BlockedEngine(
+        p, kernel=True, interpret=True)))(_dense_problem(192)),
     "sparse_compact": lambda: (lambda e: (e, make_engine(
         e, sweep_method="sparse_compact")))(_ell_problem()),
     "sparse_sorted": lambda: (lambda e: (e, make_engine(

@@ -1,4 +1,4 @@
-"""Enterprise security tier (VERDICT.md r2 missing #2 / §2 row 59 tail):
+"""Enterprise security tier (SURVEY §2 row 59 tail):
 key lifecycle, encrypt-then-MAC, RBAC sessions, DP budget, secret sharing."""
 
 import numpy as np

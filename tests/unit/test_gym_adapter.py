@@ -1,5 +1,5 @@
 """Gymnasium adapter (reference SpinGlassEnv gym.Env parity,
-rl_integration/environment.py:51; VERDICT.md r3 missing #3)."""
+rl_integration/environment.py:51)."""
 
 import numpy as np
 import pytest

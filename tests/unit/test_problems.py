@@ -205,7 +205,7 @@ class TestSimpleScheduler:
 
 class TestVRPArc:
     """Arc-based VRP with the reference's four constraint families
-    (reference routing.py:416-588; VERDICT.md missing #5)."""
+    (reference routing.py:416-588)."""
 
     def _tiny(self):
         from spinglass_tpu.problems import VRPArcProblem

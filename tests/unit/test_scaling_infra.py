@@ -201,10 +201,11 @@ class TestGlobalInfra:
             GlobalInfrastructureManager)
 
         g = GlobalInfrastructureManager(home_region="europe-west4")
-        placed = g.place(tpu_type="v5e", data_origin="europe-west4")
+        placed = g.place(accelerator="h100", data_origin="europe-west4")
         assert placed.name == "europe-west4"  # GDPR: no cross-border
         g2 = GlobalInfrastructureManager(home_region="us-central1")
-        assert len(g2.eligible_regions("v5e", "us-central1")) >= 2
+        assert len(g2.eligible_regions("h100", "us-central1")) >= 2
+        assert not g2.eligible_regions("h200", "europe-west4")
 
 
 class TestEdge:
@@ -276,7 +277,7 @@ class TestFederatedQuantum:
 
 class TestComposeMonitoringWiring:
     """The docker-compose monitoring stack must stay consistent with the
-    exporter (VERDICT.md r4 missing #2: the reference composes prometheus +
+    exporter (the reference composes prometheus +
     grafana; the rebuild had a better exporter but nothing scraping it)."""
 
     def _repo(self):

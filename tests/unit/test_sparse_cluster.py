@@ -468,8 +468,8 @@ class TestSortedSparseEngine:
 
 
 class TestSparseWolff:
-    """ELL-based Wolff (reference spin_dynamics.py:259-323 sparse Wolff;
-    VERDICT.md weak #6): no dense [R, N, N] materialization."""
+    """ELL-based Wolff (reference spin_dynamics.py:259-323 sparse Wolff):
+    no dense [R, N, N] materialization."""
 
     def test_matches_dense_wolff_same_key(self, key):
         """Dense and ELL Wolff consume the same RNG stream and compute the
@@ -514,7 +514,7 @@ class TestSparseWolff:
 
     def test_sw_beats_metropolis_at_2d_critical_point(self, key):
         """Cluster updates decorrelate where single-spin sweeps stall
-        (critical slowing down, VERDICT.md next-round #5): starting all-up
+        (critical slowing down): starting all-up
         at the 2D Ising critical temperature, a handful of SW updates
         already tunnels replicas between +m/-m sectors (replica-magnetization
         spread ~0.7) while the same number of Metropolis sweeps leaves every

@@ -10,7 +10,6 @@ import pytest
 
 from spinglass_tpu.anneal.engines import make_engine
 from spinglass_tpu.core import topology
-from spinglass_tpu.core.problem import random_spins
 from spinglass_tpu.kernels import sparse as S
 
 
@@ -135,14 +134,12 @@ class TestSortedSparseTEngine:
         # explicit override always yields the transposed engine
         eng = make_engine(ell, sweep_method="sparse_t")
         assert eng.name == "sparse_sorted_t"
-        # narrow replica hint keeps the [R, N] engine
-        eng = make_engine(ell, r_hint=16)
-        assert eng.name == "sparse_sorted"
-        # wide hint selects the transposed engine only on TPU backends
-        eng = make_engine(ell, r_hint=1024)
-        expected = ("sparse_sorted_t" if jax.default_backend() == "tpu"
-                    else "sparse_sorted")
-        assert eng.name == expected
+        # below SPARSE_T_MIN_REPLICAS the [R, N] engine stays
+        for r in (8, 16, 31):
+            assert make_engine(ell, r_hint=r).name == "sparse_sorted"
+        # from it up the transposed engine, on every backend
+        for r in (32, 128, 1024):
+            assert make_engine(ell, r_hint=r).name == "sparse_sorted_t"
 
     def test_sa_driver_end_to_end(self, key):
         """The SA driver runs with the transposed engine (layout 'nr',
@@ -172,77 +169,29 @@ class TestSortedSparseTEngine:
         assert res.best_energy <= float(np.mean(res.energy_history[0]))
 
 
-class TestSingleCallSweep:
-    """accept_kernel='single' (r5, VERDICT r4 task 4): the WHOLE colored
-    sweep — gather, fields, thresholds, flips — as ONE pallas_call with
-    spins VMEM-resident. Measured 478 us/sweep = 21.4 Gflips/s on v5e at
-    [10k, R=1024] vs the threshold path's 996 us; default on TPU. These
-    CPU tests drive the interpret-mode no-RNG kernel variant. Parity/bind
-    and energy/padding are SEPARATE tests: the combined original measured
-    ~13 s sequential and 27 s under the 2-worker suite (each test pays 1-2
-    interpret-mode compiles; splitting halves the worst single test)."""
+@pytest.mark.parametrize("engine_cls", [S.SortedSparseTEngine,
+                                        S.SortedSparseEngine,
+                                        S.SparseEngine])
+def test_sparse_fields_lower_without_dots(engine_cls, key):
+    """Neighbor fields are a multiply and a reduction, not a dot: a dot per
+    degree bucket is a separate GEMM the GPU compiler autotunes, which made
+    compiles of the [N, R] engine's programs take minutes."""
+    ell = _ell(with_h=True)
+    eng = engine_cls(ell)
+    s = eng.to_layout(jnp.ones((8, ell.n_padded), jnp.float32))
+    sweep = jax.jit(eng.sweep).lower(s, jnp.float32(1.0), key).as_text()
+    energy = jax.jit(eng.energy).lower(s).as_text()
+    for text in (sweep, energy):
+        assert "dot_general" not in text and "stablehlo.dot" not in text
 
-    def test_decision_parity_and_bind_roundtrip(self, key):
-        """Bit-exact decision parity with the per-color XLA sweep, and
-        bind(operands()) behavior identity (the bound copy SHARES the
-        compiled call cache, so the roundtrip adds ~10 ms)."""
-        from spinglass_tpu.kernels.sparse import SortedSparseTEngine
 
-        ell = _ell(n=96, seed=3)
-        base = SortedSparseTEngine(ell)
-        single = SortedSparseTEngine(ell, accept_kernel="single",
-                                     single_rows_per_step=8)
-        r = 128
-        s_rn = random_spins(key, (r, ell.n_padded), ell.active_mask)
-        u = jax.random.uniform(jax.random.key(1), (base.n_sorted, r),
-                               jnp.float32)
-        sb, deb, cb = base.sweep_with_uniforms(
-            base.to_layout(s_rn), jnp.float32(0.8), u)
-        ss, des, cs = single.sweep_with_uniforms(
-            single.to_layout(s_rn), jnp.float32(0.8), u)
-        np.testing.assert_array_equal(np.asarray(sb, np.float32),
-                                      np.asarray(ss))
-        np.testing.assert_array_equal(np.asarray(cb), np.asarray(cs))
-        np.testing.assert_allclose(np.asarray(deb), np.asarray(des),
-                                   rtol=1e-4, atol=1e-3)
-        bound = single.bind(jax.tree.map(lambda x: x, single.operands()))
-        s1b, deb2, cb2 = bound.sweep_with_uniforms(
-            single.to_layout(s_rn), jnp.float32(0.8), u)
-        np.testing.assert_array_equal(np.asarray(ss), np.asarray(s1b))
-        assert "single" in single.operands()
-
-    def test_energy_identity_and_padding_inert(self, key):
-        """E0+dE==E1 through engine.sweep (host-threshold path on CPU) and
-        inert (padding) sorted rows never flip."""
-        from spinglass_tpu.kernels.sparse import SortedSparseTEngine
-
-        ell = _ell(n=96, seed=3)
-        single = SortedSparseTEngine(ell, accept_kernel="single",
-                                     single_rows_per_step=8)
-        st = single.to_layout(random_spins(key, (128, ell.n_padded),
-                                           ell.active_mask))
-        e0 = single.energy(st)
-        s1, de, cnt = single.sweep(st, jnp.float32(0.7), jax.random.key(4))
-        np.testing.assert_allclose(np.asarray(e0 + de),
-                                   np.asarray(single.energy(s1)),
-                                   rtol=1e-4, atol=1e-2)
-        pad = np.asarray(single.perm) < 0
-        assert pad.any()
-        np.testing.assert_array_equal(np.asarray(s1)[pad],
-                                      np.asarray(st)[pad])
-
-    def test_explicit_single_rejects_unaligned_r(self, key):
-        from spinglass_tpu.kernels.sparse import SortedSparseTEngine
-
-        ell = _ell(n=128, seed=5)
-        eng = SortedSparseTEngine(ell, accept_kernel="single")
-        s = eng.to_layout(random_spins(key, (8, ell.n_padded),
-                                       ell.active_mask))
-        with pytest.raises(ValueError, match="128"):
-            eng.sweep(s, jnp.float32(1.0), jax.random.key(0))
-
-    def test_auto_mode_on_cpu_uses_threshold_path(self):
-        from spinglass_tpu.kernels.sparse import SortedSparseTEngine
-
-        eng = SortedSparseTEngine(_ell(n=128, seed=5))  # auto
-        assert not eng._use_single  # CPU backend
+def test_neighbor_sum_is_exact_f32(key):
+    """neighbor_sum equals the float64 sum rounded once per partial sum:
+    +-1 spins make every product exact."""
+    g = jnp.where(jax.random.uniform(key, (5, 7, 3)) < 0.5, -1, 1
+                  ).astype(jnp.int8)
+    val = jax.random.normal(jax.random.key(1), (5, 7, 1))
+    got = np.asarray(S.neighbor_sum(g, val, axis=1))
+    want = (np.asarray(g, np.float64) * np.asarray(val, np.float64)).sum(1)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

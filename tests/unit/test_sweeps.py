@@ -158,47 +158,6 @@ class TestColoredSweep:
                                    rtol=1e-4, atol=1e-3)
 
 
-class TestPallasKernel:
-    """Pallas blocked sweep (interpret mode on CPU) must match the XLA
-    reference implementation bit-for-bit in flip decisions."""
-
-    @pytest.mark.parametrize("rule", ["metropolis", "glauber"])
-    def test_pallas_matches_xla(self, rule, key):
-        from spinglass_tpu.kernels import metropolis_pallas as MP
-
-        p = _mk_problem(24, seed=6)
-        k1, k2 = jax.random.split(key)
-        spins = random_spins(k1, (4, p.n_padded), p.active_mask)
-        u = jax.random.uniform(k2, (4, p.n_padded))
-        beta = jnp.float32(0.8)
-        # block 32 halves the unrolled interpret-mode trace vs 64 (same
-        # parity coverage; suite-budget VERDICT r4 task 8)
-        s_x, de_x, cnt_x = K.blocked_sweep(p, spins, beta, u, block_size=32,
-                                           rule=rule)
-        s_p, de_p, cnt_p = MP.blocked_sweep_pallas(
-            p, spins, beta, u, block_size=32, rule=rule, interpret=True)
-        np.testing.assert_array_equal(np.asarray(s_x), np.asarray(s_p))
-        np.testing.assert_array_equal(np.asarray(cnt_x), np.asarray(cnt_p))
-        np.testing.assert_allclose(np.asarray(de_x), np.asarray(de_p),
-                                   rtol=1e-4, atol=1e-4)
-
-    @pytest.mark.slow  # per-replica beta also covered non-slow by
-    # test_sharded_pallas_energy_identity (beta [r]) and the TPU tier
-    def test_pallas_per_replica_beta(self, key):
-        from spinglass_tpu.kernels import metropolis_pallas as MP
-
-        p = _mk_problem(16, seed=8)
-        k1, k2 = jax.random.split(key)
-        spins = random_spins(k1, (4, p.n_padded), p.active_mask)
-        u = jax.random.uniform(k2, (4, p.n_padded))
-        beta = jnp.asarray([0.1, 0.5, 1.0, 5.0], jnp.float32)
-        s_x, _, cnt_x = K.blocked_sweep(p, spins, beta, u, block_size=128)
-        s_p, _, cnt_p = MP.blocked_sweep_pallas(p, spins, beta, u,
-                                                block_size=128, interpret=True)
-        np.testing.assert_array_equal(np.asarray(s_x), np.asarray(s_p))
-        np.testing.assert_array_equal(np.asarray(cnt_x), np.asarray(cnt_p))
-
-
 @pytest.mark.slow
 class TestDetailedBalance:
     """Empirical Boltzmann-distribution check on a 6-spin system: long-run state
@@ -256,38 +215,6 @@ class TestDetailedBalance:
         assert tv < 0.05, f"TV distance {tv} too large — detailed balance broken?"
 
 
-class TestPipelinedKernel:
-    @pytest.mark.slow
-    def test_pipelined_matches_base_decisions(self, key):
-        """The software-pipelined FusedSweep (prefetch H_pre + sub-diagonal
-        repair) must make bitwise-identical flip decisions to the in-order
-        kernel under the same host uniforms (interpret mode on CPU)."""
-        import jax
-        import numpy as np
-
-        from spinglass_tpu.core import topology
-        from spinglass_tpu.core.problem import IsingProblem, random_spins
-        from spinglass_tpu.kernels.metropolis_pallas import FusedSweep
-
-        n, r = 256, 8
-        j = topology.fully_connected(n, dist="gaussian",
-                                     scale=1.0 / np.sqrt(n), seed=1)
-        p = IsingProblem.from_dense(j)
-        k1, k2 = jax.random.split(key)
-        spins = random_spins(k1, (r, p.n_padded), p.active_mask).T
-        u = jax.random.uniform(k2, (p.n_padded, r))
-        beta = jnp.float32(0.8)
-        base = FusedSweep(p, precision="highest", interpret=True)
-        pipe = FusedSweep(p, precision="highest", interpret=True,
-                          pipelined=True)
-        s0, de0, c0 = base.sweep_with_uniforms(spins, beta, u)
-        s1, de1, c1 = pipe.sweep_with_uniforms(spins, beta, u)
-        np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-        np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
-        np.testing.assert_allclose(np.asarray(de0), np.asarray(de1),
-                                   rtol=1e-4, atol=1e-3)
-
-
 class TestHeatBathRule:
     """heat_bath is the reference's third update rule
     (spin_dynamics.py:172-191); for +-1 Ising it equals Glauber, and the
@@ -318,65 +245,3 @@ class TestHeatBathRule:
         eng = make_engine(p, sweep_method="blocked", use_pallas="never",
                           update_rule="heat_bath")
         assert eng.rule == "glauber"
-
-
-@pytest.mark.slow
-class TestFoldedKernel:
-    def test_folded_matches_base_decisions(self, key):
-        """Sublane-folded FusedSweep variant (r4 experiment, measured
-        perf-neutral on v5e — see _make_kernel_folded docstring) must make
-        bitwise-identical decisions to the flat kernel under the same
-        uniforms."""
-        from spinglass_tpu.core.problem import random_spins
-        from spinglass_tpu.kernels.metropolis_pallas import FusedSweep
-
-        p = _mk_problem(48, seed=12)
-        r = 64
-        base = FusedSweep(p, block_size=128, interpret=True)
-        fold = FusedSweep(p, block_size=128, interpret=True, folded=True)
-        k1, k2 = jax.random.split(key)
-        s = random_spins(k1, (r, p.n_padded), p.active_mask).T
-        u = jax.random.uniform(k2, (p.n_padded, r), jnp.float32)
-        beta = jnp.full((r,), 0.8, jnp.float32)
-        s_b, de_b, cnt_b = base.sweep_with_uniforms(s, beta, u)
-        s_f, de_f, cnt_f = fold.sweep_with_uniforms(s, beta, u)
-        np.testing.assert_array_equal(np.asarray(s_b), np.asarray(s_f))
-        np.testing.assert_array_equal(np.asarray(cnt_b), np.asarray(cnt_f))
-        np.testing.assert_allclose(np.asarray(de_b), np.asarray(de_f),
-                                   atol=1e-3)
-
-
-@pytest.mark.slow
-class TestInterleavedKernel:
-    @pytest.mark.parametrize("nchains", [2, 4])
-    def test_interleaved_matches_base_decisions(self, key, nchains):
-        """Chain-interleaved FusedSweep (r5, VERDICT r4 task 3: private
-        per-chain scratch refs so independent replica sub-tiles' dependency
-        chains hide each other's latency) must make bitwise-identical
-        decisions to the flat kernel under the same uniforms — every op is
-        lane-wise, chains only re-partition the replica axis."""
-        from spinglass_tpu.core.problem import random_spins
-        from spinglass_tpu.kernels.metropolis_pallas import FusedSweep
-
-        p = _mk_problem(48, seed=13)
-        r = 128 * nchains  # rc = 128, the lane-alignment minimum
-        base = FusedSweep(p, block_size=128, interpret=True)
-        inter = FusedSweep(p, block_size=128, interpret=True,
-                           interleave=nchains)
-        k1, k2 = jax.random.split(key)
-        s = random_spins(k1, (r, p.n_padded), p.active_mask).T
-        u = jax.random.uniform(k2, (p.n_padded, r), jnp.float32)
-        beta = jnp.full((r,), 0.8, jnp.float32)
-        s_b, de_b, cnt_b = base.sweep_with_uniforms(s, beta, u)
-        s_i, de_i, cnt_i = inter.sweep_with_uniforms(s, beta, u)
-        np.testing.assert_array_equal(np.asarray(s_b), np.asarray(s_i))
-        np.testing.assert_array_equal(np.asarray(cnt_b), np.asarray(cnt_i))
-        np.testing.assert_allclose(np.asarray(de_b), np.asarray(de_i),
-                                   atol=1e-3)
-
-    def test_interleave_validates(self):
-        from spinglass_tpu.kernels.metropolis_pallas import FusedSweep
-
-        p = _mk_problem(48, seed=13)
-        with pytest.raises(ValueError, match="combine"):
-            FusedSweep(p, interleave=2, folded=True)

@@ -213,7 +213,7 @@ class TestRobust:
 
 
 class TestMetricsAuth:
-    """Token-gated metrics endpoint (VERDICT.md next-round #10: the one real
+    """Token-gated metrics endpoint (the one real
     HTTP surface, gated with the reference enterprise tier's intent)."""
 
     def test_token_roles_and_revocation(self, tmp_path):
